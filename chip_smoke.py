@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
+
+    python3 chip_smoke.py                 # full scale (the default)
+    python3 chip_smoke.py --scale 0.1 --t-sim 100   # a quicker look
+
+Phases, each on its own line; any failed check exits non-zero:
+
+1. the card (``nvidia-smi`` name and power limit) and the kernels' build
+   from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
+2. K1 ``lif_update`` on N = 77,169 random neurons, bitwise against its
+   plain PyTorch version;
+3. K2 ``ell_deliver`` and K3 ``lif_deliver`` on the connectome's ELL tables
+   with budget 256, at 0, 31, 256 and 300 spikes: ids, overflow, spikes,
+   V and refrac exact, the ring (and the currents fed from it) within
+   rtol = atol = 1e-5 (float atomics add in no fixed order);
+4. the port against its plain reference on the card at scale 0.02: the
+   fused and split paths give the reference's spike raster;
+5. the main path at ``--scale`` (default 1.0) through
+   ``Simulator(MicrocircuitConfig(scale, strategy="ell"))``: the ``auto``
+   policy must resolve to ``fused``; warmup, 100 ms presim, a ``--t-sim``
+   ms run; RTF, overflow (must be 0), population rates (must lie in
+   ``ref*(1 -+ 0.5) -+ 1`` Hz) and launch counts (K3 once per step);
+   then 200 more steps under ``torch.profiler``: device time per step by
+   kernel, the host's time by op, and the device's idle share of the
+   unprofiled step;
+6. a 100 ms run of the split path, which launches K1 and K2;
+7. the kernels' times at the main path's shapes beside their bounds:
+   device time per call from ``torch.profiler`` (``ms``) and the
+   back-to-back call time from CUDA events (``call_ms``).
+
+The line before the last is ``{"kernels": [...]}``, the last
+``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+#: H100 SXM memory rate and float32 rate outside the tensor cores (NVIDIA
+#: data sheet, 700 W)
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: float32 products and sums per neuron of one LIF step (lif_neuron in
+#: csrc/common.cuh; its compares and selects are not counted)
+LIF_OPS = 13
+#: operations per delivered ELL entry: the slot's add and modulo, and the
+#: atomic add
+ENTRY_OPS = 3
+#: full-scale mean rates (Hz), POPULATIONS order L23E L4E L5E L6E L23I L4I
+#: L5I L6I -- the reference's FULL_MEAN_RATES, copied
+FULL_MEAN_RATES = [0.971, 4.746, 8.142, 0.991, 2.868, 5.396, 9.078, 7.523]
+RATE_REL_TOL, RATE_ABS_TOL = 0.5, 1.0      # validate/reference.py:60-78
+RING_RTOL = RING_ATOL = 1e-5
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def say(phase: str, **fields) -> None:
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
+          flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def call_ms(fn, iters: int = 64, warm: int = 3) -> float:
+    """Mean milliseconds per call, back to back on the card (CUDA events);
+    for launches this small it is the host's launch rate."""
+    import torch
+    for i in range(warm):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def device_ms(fn, iters: int = 64):
+    """Mean milliseconds of device activity per call: every kernel and
+    memset that ``torch.profiler`` records over ``iters`` calls.  None when
+    the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn(0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(i)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == cuda)
+    return us / iters / 1e3 if us > 0 else None
+
+
+def timed(fn) -> dict:
+    """``ms`` is the device time per call where the profiler sees it, else
+    the back-to-back call time; both are kept."""
+    dev, call = device_ms(fn), call_ms(fn)
+    return {"ms": call if dev is None else dev, "call_ms": call,
+            "timing": "events" if dev is None else "profiler"}
+
+
+def bound(n_bytes: float, n_ops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    the float32 rate."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--scale", type=float, default=1.0)
+    ap.add_argument("--t-sim", type=float, default=1000.0)
+    ap.add_argument("--seed", type=int, default=55)
+    args = ap.parse_args()
+
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA card: torch.cuda.is_available() is false")
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        fail(f"the port's sources are not beside this script "
+             f"({SRC / 'repro_torch'} missing)")
+    sys.path.insert(0, str(SRC))
+    from repro_torch.api import Simulator
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.core.connectivity import build_connectome
+    from repro_torch.core.delivery import REGISTRY as STRATEGIES
+    from repro_torch.core.engine import SimConfig
+    from repro_torch.core.neuron import Propagators
+    from repro_torch.core.params import NeuronParams
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ell_deliver as K2
+    from repro_torch.kernels import lif_deliver as K3
+    from repro_torch.kernels import lif_update as K1
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+
+    # -- 1. card and build ---------------------------------------------------
+    say("card", nvidia_smi=json.dumps(card), torch=torch.__version__,
+        cuda=torch.version.cuda)
+    build_s = _build.build_all()
+    for name in _build.SOURCES:
+        _build.library(name)
+        regs = [ln.strip() for ln in _build.ptxas_report.get(name, "")
+                .splitlines() if "registers" in ln]
+        say("ptxas", kernel=name, report=json.dumps(regs))
+    grid = K3.cooperative_grid(dev, 77_170)
+    say("build", seconds=f"{build_s:.2f}", cooperative_grid=grid)
+
+    prop = Propagators.make(NeuronParams(), 0.1)
+    rng = np.random.default_rng(args.seed)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    # -- 2. K1 bitwise at N = 77,169 -----------------------------------------
+    n1 = 77_169
+    k1_in = (on(rng.uniform(-80, -45, n1).astype(np.float32)),
+             on((rng.uniform(0, 1, n1) * 400).astype(np.float32)),
+             on((-rng.uniform(0, 1, n1) * 400).astype(np.float32)),
+             on(rng.integers(0, 21, n1).astype(np.int32)),
+             on((rng.uniform(0, 1, n1) * 100).astype(np.float32)),
+             on((-rng.uniform(0, 1, n1) * 100).astype(np.float32)),
+             on(rng.uniform(-20, 20, n1).astype(np.float32)))
+    got = K1.lif_update(*k1_in, prop=prop)
+    want = K1.lif_update_plain(*k1_in, prop=prop)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("V", "I_ex", "I_in", "refrac", "spiked"),
+                          got, want):
+        if not torch.equal(a, b):
+            fail(f"K1 lif_update {name} differs from the plain version in "
+                 f"{int((a != b).sum())} of {n1} neurons")
+    say("K1", n=n1, bitwise=True, spikes=int(got[4].sum()))
+
+    # -- 3. K2 / K3 on the connectome's ELL tables ---------------------------
+    t0 = time.perf_counter()
+    c = build_connectome(scale=args.scale, seed=args.seed)
+    build_conn_s = time.perf_counter() - t0
+    ell = STRATEGIES["ell"]
+    t0 = time.perf_counter()
+    tables = ell.prepare(c, SimConfig(strategy="ell"), dev)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    table_bytes = sum(t.numel() * t.element_size() for t in tables)
+    N, D, budget = c.n_total, c.d_max_bins, 256
+    k_pad = tables.targets.shape[1]
+    say("connectome", scale=args.scale, n=N, synapses=c.n_synapses,
+        k_max=c.targets.shape[1], k_pad=k_pad, d_bins=D,
+        build_s=f"{build_conn_s:.1f}", tables_to_device_s=f"{prep_s:.1f}",
+        table_bytes=table_bytes)
+
+    def ring0():
+        r = np.zeros((D, 2, N + 1), np.float32)
+        r[:, 0, :N] = rng.uniform(0, 50, (D, N))      # channel signs as by
+        r[:, 1, :N] = -rng.uniform(0, 50, (D, N))     # Dale's law
+        return on(r)
+
+    def spiked_with(k):
+        s = np.zeros(N, bool)
+        s[rng.choice(N, size=k, replace=False)] = True
+        return on(s)
+
+    state_in = (on(rng.uniform(-80, -45, N).astype(np.float32)),
+                on((rng.uniform(0, 1, N) * 400).astype(np.float32)),
+                on((-rng.uniform(0, 1, N) * 400).astype(np.float32)),
+                on(rng.integers(0, 21, N).astype(np.int32)))
+    ext_ex = on((rng.poisson(10.0, N) * c.w_ext).astype(np.float32))
+    i_dc = torch.as_tensor(c.i_dc, device=dev)
+    tbl = (tables.targets, tables.weights, tables.dbins)
+    max_err = {"lif_update": 0.0, "ell_deliver": 0.0, "lif_deliver": 0.0}
+    t_step = 1234
+    for k in (0, 31, 256, 300):
+        spk = spiked_with(k)
+        ring = ring0()
+        r_k, ids_k, ovf_k = K2.ell_deliver(ring.clone(), *tbl, spk, t_step,
+                                           c.n_exc, budget)
+        r_p, ids_p, ovf_p = K2.ell_deliver_plain(ring.clone(), *tbl, spk,
+                                                 t_step, c.n_exc, budget)
+        torch.cuda.synchronize()
+        if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
+            fail(f"K2 ids/overflow differ at {k} spikes")
+        err = float((r_k - r_p).abs().max())
+        if not torch.allclose(r_k, r_p, rtol=RING_RTOL, atol=RING_ATOL):
+            fail(f"K2 ring differs at {k} spikes: max |diff| {err}")
+        max_err["ell_deliver"] = max(max_err["ell_deliver"], err)
+
+        out_k = K3.lif_deliver(ring.clone(), *tbl, spk, *state_in, ext_ex,
+                               i_dc, t_step, n_exc=c.n_exc, budget=budget,
+                               prop=prop)
+        out_p = K3.lif_deliver_plain(ring.clone(), *tbl, spk, *state_in,
+                                     ext_ex, i_dc, t_step, n_exc=c.n_exc,
+                                     budget=budget, prop=prop)
+        torch.cuda.synchronize()
+        names = ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
+                 "overflow")
+        errs = {}
+        for name, a, b in zip(names, out_k, out_p):
+            if name in ("ring", "I_ex", "I_in"):
+                errs[name] = float((a - b).abs().max())
+                if not torch.allclose(a, b, rtol=RING_RTOL, atol=RING_ATOL):
+                    fail(f"K3 {name} differs at {k} spikes: max |diff| "
+                         f"{errs[name]}")
+            elif not torch.equal(a, b):
+                fail(f"K3 {name} differs from the plain version at {k} "
+                     f"spikes")
+        max_err["lif_deliver"] = max(max_err["lif_deliver"], *errs.values())
+        say("K2+K3", spikes=k, budget=budget, overflow=int(ovf_k),
+            ids_exact=True, K2_ring_max_abs_err=err,
+            K3_max_abs_err=json.dumps(errs))
+    del tables, tbl, ring, r_k, r_p, out_k, out_p
+    torch.cuda.empty_cache()
+
+    # -- 4. the port against its plain reference on the card -----------------
+    small = MicrocircuitConfig(scale=0.02, strategy="ell", t_presim=0.0)
+    rasters = {}
+    for mode in ("reference", "fused", "split"):
+        s = Simulator(small, kernels=mode, probes=("spikes",), device=dev)
+        r = s.run(20.0)
+        V = s.state.neuron.V
+        if not bool(torch.isfinite(V).all()):
+            fail(f"non-finite V in the {mode} path at scale 0.02")
+        rasters[mode] = (r["spikes"], V.cpu().numpy())
+    for mode in ("fused", "split"):
+        same = np.array_equal(rasters[mode][0], rasters["reference"][0])
+        dv = float(np.abs(rasters[mode][1] - rasters["reference"][1]).max())
+        if not same:
+            fail(f"{mode} path's spike raster differs from the plain "
+                 f"reference at scale 0.02")
+        say("vs_reference", mode=mode, steps=rasters[mode][0].shape[0],
+            spikes=int(rasters[mode][0].sum()), raster_equal=True,
+            max_abs_dV_mV=dv)
+
+    # -- 5. the main path -----------------------------------------------------
+    cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                             seed=args.seed)
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, connectome=c, device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pol = sim.sim_config.kernels
+    if pol.step != "fused":
+        fail(f"auto policy resolved to {pol.describe()}, not fused")
+    sim.warmup()
+    _build.reset_launches()
+    res = sim.run(args.t_sim)
+    fused_launches = dict(_build.launches)
+    steps_total = sim._steps(sim.t_presim) + res.n_steps
+    rates = res.summary()["rates_hz"]
+    ms_step = res.wall_s / res.n_steps * 1e3
+    say("main_path", policy=pol.describe(), budget=sim.sim_config.spike_budget,
+        tables_to_device_s=f"{setup_s:.1f}", presim_ms=sim.t_presim,
+        run_ms=args.t_sim, steps=res.n_steps, wall_s=res.wall_s,
+        rtf=res.rtf, ms_per_step=ms_step, overflow=res.overflow,
+        spikes_per_step=float(res["pop_counts"].sum()) / res.n_steps)
+    say("rates_hz", **{p: f"{r:.3f}" for p, r in zip(
+        ("L23E", "L4E", "L5E", "L6E", "L23I", "L4I", "L5I", "L6I"), rates)})
+    say("launches", path="fused", **fused_launches,
+        steps_incl_presim=steps_total)
+    if res.overflow != 0:
+        fail(f"overflow {res.overflow} on the main path")
+    if fused_launches["lif_deliver"] != steps_total:
+        fail(f"K3 launched {fused_launches['lif_deliver']} times for "
+             f"{steps_total} steps")
+    for p, r, ref in zip(range(8), rates, FULL_MEAN_RATES):
+        lo = max(0.0, ref * (1 - RATE_REL_TOL) - RATE_ABS_TOL)
+        hi = ref * (1 + RATE_REL_TOL) + RATE_ABS_TOL
+        if not lo <= r <= hi:
+            fail(f"population {p} rate {r:.3f} Hz outside [{lo:.3f}, "
+                 f"{hi:.3f}]")
+    spikes_per_step = max(1, round(float(res["pop_counts"].sum())
+                                   / res.n_steps))
+    budget_main = sim.sim_config.spike_budget
+
+    # where a step's time goes: device time by kernel over 200 more steps,
+    # against the unprofiled wall time per step
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res_p = sim.run(20.0)
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    dev_ms_step = sum(by_kernel.values()) / res_p.n_steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the host's side: self time of each PyTorch op the profiler records
+    # (the Python between the ops, ctypes included, is not in it)
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3 / res_p.n_steps)
+                   for a in prof.key_averages()
+                   if a.self_cpu_time_total > 0), key=lambda kv: -kv[1])
+    say("main_path_profile", steps=res_p.n_steps,
+        device_ms_per_step=dev_ms_step, wall_ms_per_step=ms_step,
+        device_idle_share=1.0 - dev_ms_step / ms_step,
+        kernels_ms_per_step=json.dumps(
+            {name[:60]: ms / res_p.n_steps for name, ms in top}),
+        host_op_ms_per_step=sum(ms for _, ms in host),
+        host_ops_ms_per_step=json.dumps(dict(host[:10])))
+
+    del sim
+    torch.cuda.empty_cache()
+
+    # -- 6. the split path ----------------------------------------------------
+    split_cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                                   seed=args.seed, t_presim=0.0,
+                                   kernels="split")
+    sim = Simulator(split_cfg, connectome=c, device=dev)
+    sim.warmup()
+    _build.reset_launches()
+    res_s = sim.run(100.0)
+    split_launches = dict(_build.launches)
+    say("split_path", policy=sim.sim_config.kernels.describe(),
+        steps=res_s.n_steps, rtf=res_s.rtf,
+        ms_per_step=res_s.wall_s / res_s.n_steps * 1e3,
+        overflow=res_s.overflow)
+    say("launches", path="split", **split_launches)
+    if split_launches["lif_update"] != res_s.n_steps \
+            or split_launches["ell_deliver"] != res_s.n_steps:
+        fail(f"split path launched K1/K2 {split_launches} for "
+             f"{res_s.n_steps} steps")
+    tables = sim.backend.net.tables
+    tbl = (tables.targets, tables.weights, tables.dbins)
+
+    # -- 7. kernel times at the main path's shapes ---------------------------
+    # Each call gets one of 64 spike vectors of the main path's mean count,
+    # so the gathered ELL rows (about 2 MB a call) come from device memory
+    # rather than from the L2 copy the previous call left.
+    k1_bytes = N * (7 * 4 + 4 * 4 + 1)             # 7 in, 4 out, spikes
+    k1_args = tuple(x[:N] for x in k1_in)
+    k1 = timed(lambda i: K1.lif_update(*k1_args, prop=prop))
+    k1_plain = timed(lambda i: K1.lif_update_plain(*k1_args, prop=prop))
+
+    spks = [spiked_with(spikes_per_step) for _ in range(64)]
+    spk_of = lambda i: spks[i % len(spks)]
+    ids_np = [np.flatnonzero(s.cpu().numpy())[:budget_main] for s in spks]
+    # entries with a real target (padding is skipped), per call on average
+    n_entries = float(np.mean([(c.targets[i] < N).sum() for i in ids_np]))
+    # spike vector, ids, the real rows' (target, weight, dbin) entries, and
+    # a read-modify-write of the ring cell each real entry adds into
+    k2_bytes = N + 4 * budget_main + 4 + n_entries * (12 + 8)
+    ring = ring0()
+    k2 = timed(lambda i: K2.ell_deliver(ring, *tbl, spk_of(i), t_step,
+                                        c.n_exc, budget_main))
+    k2_plain = timed(lambda i: K2.ell_deliver_plain(
+        ring, *tbl, spk_of(i), t_step, c.n_exc, budget_main))
+
+    def flat_rows(ids):                 # index_add_'s inputs for one call
+        ids_t = torch.as_tensor(ids, device=dev)
+        lin = (torch.remainder(t_step + tables.dbins[ids_t].long(), D)
+               * (2 * (N + 1))
+               + (ids_t >= c.n_exc).long()[:, None] * (N + 1)
+               + tables.targets[ids_t].long())
+        return lin.reshape(-1), tables.weights[ids_t].reshape(-1)
+    lib_in = [flat_rows(i) for i in ids_np]
+    k2_lib = timed(lambda i: ring.view(-1).index_add_(
+        0, *lib_in[i % len(lib_in)]))
+
+    k3_bytes = (N * (6 * 4 + 4 * 4 + 1) + N          # state, drive, spikes
+                + 2 * 2 * (N + 1) * 4                # slot read + zeroed
+                + 4 * budget_main + 4 + n_entries * (12 + 8))
+    k3_state = (*state_in, ext_ex, i_dc, t_step)
+    k3 = timed(lambda i: K3.lif_deliver(
+        ring, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
+        prop=prop))
+    k3_plain = timed(lambda i: K3.lif_deliver_plain(
+        ring, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
+        prop=prop))
+    say("timing", spikes=spikes_per_step, real_entries=n_entries,
+        K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
+        K2_index_add=json.dumps(k2_lib))
+
+    def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err):
+        b_ms, b_by = bound(n_bytes, n_ops)
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/csrc/{source}",
+                "replaces": replaces,
+                "launches": fused_launches[name] + split_launches[name],
+                "launches_by_path": {"fused": fused_launches[name],
+                                     "split": split_launches[name]},
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": plain["ms"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": None if lib is None else lib["ms"],
+                "call_ms": t["call_ms"], "plain_call_ms": plain["call_ms"],
+                "timing": t["timing"]}
+
+    kernels = [
+        row("lif_update", "lif_update.cu",
+            "src/repro/kernels/lif_update.py:58", k1, k1_plain, k1_bytes,
+            LIF_OPS * N, None, max_err["lif_update"]),
+        row("ell_deliver", "ell_deliver.cu",
+            "src/repro/kernels/ell_deliver.py:75", k2, k2_plain, k2_bytes,
+            ENTRY_OPS * n_entries, k2_lib, max_err["ell_deliver"]),
+        row("lif_deliver", "lif_deliver.cu",
+            "src/repro/kernels/lif_deliver.py:199", k3, k3_plain,
+            k3_bytes, LIF_OPS * N + ENTRY_OPS * n_entries, None,
+            max_err["lif_deliver"]),
+    ]
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

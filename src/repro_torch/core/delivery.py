@@ -1,0 +1,169 @@
+"""Spike-delivery strategies: a protocol plus a registry.
+
+The port's counterpart of ``repro.core.delivery``, with ``event`` and
+``ell``; ``dense`` waits for its own slice.  Both strategies use the padded
+ELL out-adjacency with one sentinel source row at index N, and write into
+``ring[D, 2, N+1]`` (channel 0/1 = excitatory/inhibitory arrivals, one
+trailing dump column for padded entries).  The ring is updated in place.
+
+* ``event`` -- the reference's ``deliver_event``: ordered id compaction,
+  row gather and one ``index_add_`` (the JAX package leaves it to XLA, so
+  the port leaves it to PyTorch).
+* ``ell`` -- the same tables, rows padded to ``block_k = 128``; delivered
+  by kernel K2 (``kernels/ell_deliver``) when the resolved policy says
+  ``deliver="kernel"``, by ``deliver_event`` otherwise (``reference``).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Type
+
+import numpy as np
+import torch
+
+from repro_torch.core import kernel_policy as kpol
+from repro_torch.core.params import FULL_MEAN_RATES
+from repro_torch.kernels.ell_deliver import ell_deliver_plain
+
+
+class DeliveryOverflowError(RuntimeError):
+    """Raised (``SimConfig.strict_delivery``) when spikes exceeded the
+    per-step ``spike_budget`` and were dropped."""
+
+
+class EventTables(NamedTuple):
+    """Padded ELL out-adjacency, plus one sentinel row at index N."""
+    targets: torch.Tensor   # [N+1, K] int32 in [0, N]; N == dump
+    weights: torch.Tensor   # [N+1, K] float32
+    dbins: torch.Tensor     # [N+1, K] int32 >= 1
+
+
+def make_event_tables(targets: np.ndarray, weights: np.ndarray,
+                      dbins: np.ndarray, device,
+                      k_pad: Optional[int] = None) -> EventTables:
+    """Pad the rows to ``k_pad`` entries (target N, weight 0, delay bin 1),
+    append the sentinel source row (every entry the dump column with
+    weight 0) and move the tables to ``device``.  One host copy per table,
+    which matters at full scale (2.1 GB each)."""
+    n, k = targets.shape
+    k_pad = k if k_pad is None else k_pad
+
+    def padded(a, fill):
+        out = np.full((n + 1, k_pad), fill, a.dtype)
+        out[:n, :k] = a
+        return torch.from_numpy(out).to(device)
+    return EventTables(targets=padded(targets, n), weights=padded(weights, 0),
+                       dbins=padded(dbins, 1))
+
+
+def deliver_event(ring: torch.Tensor, tables: EventTables,
+                  spiked: torch.Tensor, t: int, n_exc: int,
+                  spike_budget: int):
+    """Event-driven delivery, in place.  Returns ``(ring, n_overflow)``."""
+    ring, _, overflow = ell_deliver_plain(
+        ring, tables.targets, tables.weights, tables.dbins, spiked, t,
+        n_exc, spike_budget)
+    return ring, overflow
+
+
+def auto_spike_budget(c, dt: float, safety: float = 8.0,
+                      quantum: int = 128) -> int:
+    """Rate-derived per-step spike capacity: expected spikes per step at
+    the full-scale reference rates times ``safety``, rounded up to
+    ``quantum`` and capped at the padded network size."""
+    pop_sizes = np.asarray(c.pop_sizes)
+    if pop_sizes.shape[0] == FULL_MEAN_RATES.shape[0]:
+        expected = float((pop_sizes * FULL_MEAN_RATES).sum()) * dt * 1e-3
+    else:
+        expected = c.n_total * float(FULL_MEAN_RATES.max()) * dt * 1e-3
+    budget = max(quantum, math.ceil(expected * safety / quantum) * quantum)
+    n_cap = math.ceil(c.n_total / quantum) * quantum
+    return int(min(budget, n_cap))
+
+
+def _require_budget(cfg) -> int:
+    if cfg.spike_budget is None:
+        raise ValueError(
+            "SimConfig.spike_budget is unresolved; call repro_torch.core."
+            "engine.resolve_sim_config(cfg, connectome, device) first")
+    return int(cfg.spike_budget)
+
+
+class DeliveryStrategy:
+    """One spike-propagation mechanism: ``prepare`` builds the device
+    tables on the host, ``deliver`` scatters one step's spikes."""
+
+    name: str = "abstract"
+
+    def prepare(self, c, cfg, device) -> Any:
+        raise NotImplementedError
+
+    def deliver(self, ring: torch.Tensor, tables: Any, spiked: torch.Tensor,
+                t: int, n_exc: int, cfg) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+        """Scatter one step's spikes. Returns (ring, n_overflow)."""
+        raise NotImplementedError
+
+
+REGISTRY: Dict[str, DeliveryStrategy] = {}
+
+
+def register(cls: Type[DeliveryStrategy]) -> Type[DeliveryStrategy]:
+    """Class decorator: instantiate and register under ``cls.name``."""
+    if not getattr(cls, "name", None) or cls.name == "abstract":
+        raise ValueError(f"{cls.__name__} needs a concrete .name")
+    if cls.name in REGISTRY:
+        raise ValueError(f"delivery strategy {cls.name!r} is already "
+                         f"registered")
+    REGISTRY[cls.name] = cls()
+    return cls
+
+
+def get_strategy(name: str) -> DeliveryStrategy:
+    try:
+        return REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown delivery strategy {name!r}; "
+                         f"available: {available_strategies()}") from None
+
+
+def available_strategies() -> Tuple[str, ...]:
+    return tuple(sorted(REGISTRY))
+
+
+@register
+class EventDelivery(DeliveryStrategy):
+    """Budgeted event-driven gather + one ``index_add_``."""
+
+    name = "event"
+
+    def prepare(self, c, cfg, device) -> EventTables:
+        return make_event_tables(c.targets, c.weights, c.dbins, device)
+
+    def deliver(self, ring, tables, spiked, t, n_exc, cfg):
+        return deliver_event(ring, tables, spiked, t, n_exc,
+                             _require_budget(cfg))
+
+
+@register
+class EllDelivery(DeliveryStrategy):
+    """Sparse-ELL delivery backed by kernel K2 (``kernels/ell_deliver``)."""
+
+    name = "ell"
+    block_k = 128            # ELL row pad (the reference's lane-aligned K)
+
+    def k_pad(self, k: int) -> int:
+        return max(self.block_k, -(-k // self.block_k) * self.block_k)
+
+    def prepare(self, c, cfg, device) -> EventTables:
+        """The reference's pad to ``block_k`` (delivery.py:404-417)."""
+        return make_event_tables(c.targets, c.weights, c.dbins, device,
+                                 k_pad=self.k_pad(c.targets.shape[1]))
+
+    def deliver(self, ring, tables, spiked, t, n_exc, cfg):
+        budget = _require_budget(cfg)
+        pol = kpol.policy_of(cfg)
+        if pol is not None and pol.deliver == "kernel":
+            from repro_torch.kernels import ops as kops
+            return kops.ell_deliver(ring, tables, spiked, t, n_exc, budget)
+        return deliver_event(ring, tables, spiked, t, n_exc, budget)

@@ -1,0 +1,87 @@
+"""KernelPolicy: which hand-written kernels run the hot loop.
+
+The port's counterpart of ``repro.core.kernel_policy``.  ``SimConfig.
+kernels`` (or ``Simulator(kernels=...)``) takes a mode string, and
+``resolve_sim_config`` resolves it exactly once against the session's
+device and connectome into a ``KernelPolicy``; every field is concrete.
+
+Modes
+-----
+``auto``       on ``cuda``: the fused one-kernel step (K3) for the ``ell``
+               strategy with float32 state, the split kernels (K1 + K2)
+               otherwise.  On the CPU: the plain PyTorch versions.
+``fused``      force the fused step.  Raises unless strategy == "ell" and
+               float32 state.
+``split``      force the per-phase kernels (``lif_update`` + delivery).
+``reference``  the plain PyTorch versions on any device (``lif_step`` +
+               ``index_add_`` delivery) -- only when asked for by name.
+
+The reference's TPU rules are gone: the card has no VMEM cap on the ring
+(the JAX ``auto`` on a TPU falls back to split with XLA delivery at full
+scale, where the 28 MB ring exceeds its VMEM gate), and there is no
+interpret mode.  A wrapper given CPU tensors runs its plain version, so
+``fused`` and ``split`` resolved on the CPU run the plain versions there.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Union
+
+import torch
+
+MODES = ("auto", "fused", "split", "reference")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """A resolved kernel policy; ``resolve`` makes it."""
+    mode: str        # one of MODES, as asked for
+    step: str        # "fused" (K3) | "split" (update + deliver phases)
+    kernels: bool    # the hand-written kernels, else the plain versions
+    deliver: str     # what scatters spikes: "kernel" (K2/K3) | "index_add"
+
+    def describe(self) -> str:
+        """One-line form, e.g. ``auto[step=fused,lif=kernel,deliver=kernel]``."""
+        lif = "kernel" if self.kernels else "plain"
+        return f"{self.mode}[step={self.step},lif={lif},deliver={self.deliver}]"
+
+
+def fused_eligible(strategy: str, state_dtype) -> tuple[bool, str]:
+    """(eligible, reason-if-not) for the fused one-kernel step."""
+    if strategy != "ell":
+        return False, (f"the fused step requires the 'ell' delivery "
+                       f"strategy (got {strategy!r})")
+    if state_dtype != torch.float32:
+        return False, (f"the fused step requires float32 state "
+                       f"(got {state_dtype})")
+    return True, ""
+
+
+def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
+            state_dtype, device) -> KernelPolicy:
+    """Resolve a mode (None means ``auto``) against the session's device.
+    Idempotent: a resolved policy is returned as it is."""
+    if isinstance(kernels, KernelPolicy):
+        return kernels
+    mode = "auto" if kernels is None else kernels
+    if not isinstance(mode, str):
+        raise TypeError(f"kernels= takes a mode string {MODES}, "
+                        f"got {type(mode).__name__}")
+    if mode not in MODES:
+        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    on_cuda = torch.device(device).type == "cuda"
+    eligible, why = fused_eligible(strategy, state_dtype)
+    if mode == "fused" and not eligible:
+        raise ValueError(f"kernels='fused': {why}")
+    fused = mode == "fused" or (mode == "auto" and on_cuda and eligible)
+    use = mode in ("fused", "split") or (mode == "auto" and on_cuda)
+    # only the ell strategy has a delivery kernel; event is index_add_
+    deliver = "kernel" if use and strategy == "ell" else "index_add"
+    return KernelPolicy(mode=mode, step="fused" if fused else "split",
+                        kernels=use, deliver=deliver)
+
+
+def policy_of(cfg) -> Optional[KernelPolicy]:
+    """The resolved policy carried by a SimConfig, or None."""
+    pol = getattr(cfg, "kernels", None)
+    return pol if isinstance(pol, KernelPolicy) else None

@@ -1,0 +1,45 @@
+// Shared pieces of the port's hand-written Hopper kernels.
+//
+// Each .cu file is built by nvcc into its own shared library with a plain C
+// interface (repro_torch/kernels/_build.py) and loaded with ctypes.  Every
+// launch function returns cudaGetLastError() right after its launches; the
+// Python wrapper raises on a non-zero code, with kernel_error_string().
+#pragma once
+
+#include <cuda_runtime.h>
+
+#define EXPORT extern "C" __attribute__((visibility("default")))
+
+EXPORT const char* kernel_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Propagators of one exact-integration iaf_psc_exp step, rounded to float32
+// on the host exactly as PyTorch rounds a Python float scalar.
+struct LifProp {
+  float P11_ex, P11_in, P22, P21_ex, P21_in, P20, V_th, V_reset, E_L;
+  int ref_steps;
+};
+
+// One neuron's step, in the reference's operation order
+// (repro/kernels/lif_update.py:36-53, repro/core/neuron.py:92-109).  Every
+// product and sum is rounded on its own (__fmul_rn / __fadd_rn never
+// contract into an FMA), so the result equals the plain PyTorch version bit
+// for bit.
+__device__ __forceinline__ void lif_neuron(
+    const LifProp& p, float V, float I_ex, float I_in, int refrac,
+    float in_ex, float in_in, float i_dc,
+    float* Vo, float* Iexo, float* Iino, int* refo, unsigned char* spk) {
+  float v = __fadd_rn(p.E_L, __fmul_rn(__fsub_rn(V, p.E_L), p.P22));
+  v = __fadd_rn(v, __fmul_rn(I_ex, p.P21_ex));
+  v = __fadd_rn(v, __fmul_rn(I_in, p.P21_in));
+  v = __fadd_rn(v, __fmul_rn(i_dc, p.P20));
+  *Iexo = __fadd_rn(__fmul_rn(I_ex, p.P11_ex), in_ex);
+  *Iino = __fadd_rn(__fmul_rn(I_in, p.P11_in), in_in);
+  const bool refractory = refrac > 0;
+  if (refractory) v = p.V_reset;
+  const bool fired = (v >= p.V_th) && !refractory;
+  *Vo = fired ? p.V_reset : v;
+  *refo = fired ? p.ref_steps : max(refrac - 1, 0);
+  *spk = fired ? 1 : 0;
+}

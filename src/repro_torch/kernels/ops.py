@@ -1,0 +1,49 @@
+"""Wrappers around the kernels with the reference's signatures
+(``repro/kernels/ops.py:26``, ``:44`` and ``:64``).
+
+Each takes the engine's types (``NeuronState``, ``EventTables``) and runs
+its kernel on CUDA tensors or its plain version on CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.neuron import NeuronState, Propagators
+from repro_torch.kernels import ell_deliver as _ell
+from repro_torch.kernels import lif_deliver as _fused
+from repro_torch.kernels import lif_update as _lif
+
+
+def lif_update(state: NeuronState, prop: Propagators, in_ex: torch.Tensor,
+               in_in: torch.Tensor, i_dc: torch.Tensor):
+    """LIF update (K1).  Drop-in for ``core.neuron.lif_step``."""
+    V, I_ex, I_in, refrac, spiked = _lif.lif_update(
+        state.V, state.I_ex, state.I_in, state.refrac, in_ex.contiguous(),
+        in_in.contiguous(), i_dc.contiguous(), prop=prop)
+    return NeuronState(V, I_ex, I_in, refrac), spiked
+
+
+def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t: int,
+                n_exc: int, spike_budget: int):
+    """Sparse-ELL delivery (K2), in place.  Returns ``(ring, overflow)``,
+    like ``delivery.deliver_event``."""
+    ring, _, overflow = _ell.ell_deliver(
+        ring, tables.targets, tables.weights, tables.dbins, spiked, t,
+        n_exc, spike_budget)
+    return ring, overflow
+
+
+def lif_deliver(state: NeuronState, ring: torch.Tensor, t: int,
+                spiked_prev: torch.Tensor, tables, prop: Propagators,
+                ext_ex: torch.Tensor, i_dc: torch.Tensor, *, n_exc: int,
+                spike_budget: int):
+    """Fused step (K3): deliver ``spiked_prev`` at phase ``t - 1``, then
+    integrate step ``t``.  Returns ``(neuron', ring, spiked, overflow)``,
+    the overflow being the delivered step's budget excess."""
+    (ring, V, I_ex, I_in, refrac, spiked, _,
+     overflow) = _fused.lif_deliver(
+        ring, tables.targets, tables.weights, tables.dbins, spiked_prev,
+        state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
+        i_dc.contiguous(), t - 1, n_exc=n_exc, budget=spike_budget,
+        prop=prop)
+    return NeuronState(V, I_ex, I_in, refrac), ring, spiked, overflow
