@@ -10,12 +10,18 @@ Phases, each on its own line; any failed check exits non-zero:
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
 2. K1 ``lif_update`` on N = 77,169 random neurons, bitwise against its
    plain PyTorch version;
-3. K2 ``ell_deliver`` and K3 ``lif_deliver`` on the connectome's ELL tables
-   with budget 256, at 0, 31, 256 and 300 spikes: ids, overflow, spikes,
-   V and refrac exact, the ring (and the currents fed from it) within
-   rtol = atol = 1e-5 (float atomics add in no fixed order);
+3. K2 ``ell_deliver``, K3 ``lif_deliver`` and K4 ``lif_deliver_plastic``
+   on the connectome's ELL tables with budget 256, at 0, 31, 256 and 300
+   spikes: ids, overflow, spikes, V and refrac exact (K4 also its traces
+   and the written-back weights), the ring (and the currents fed from it)
+   within rtol = atol = 1e-5 (float atomics add in no fixed order); then
+   ``stdp_update`` at the same spike counts, with and without the
+   depression and the whole-table clip, bitwise (weights and traces) from
+   a table with E->E weights above w_max; and the plastic tables' build
+   time and bytes;
 4. the port against its plain reference on the card at scale 0.02: the
-   fused and split paths give the reference's spike raster;
+   fused and split paths give the reference's spike raster, static and
+   with pair STDP (and then the reference's final weights, bitwise);
 5. the main path at ``--scale`` (default 1.0) through
    ``Simulator(MicrocircuitConfig(scale, strategy="ell"))``: the ``auto``
    policy must resolve to ``fused``; warmup, 100 ms presim, a ``--t-sim``
@@ -25,7 +31,15 @@ Phases, each on its own line; any failed check exits non-zero:
    kernel, the host's time by op, and the device's idle share of the
    unprofiled step;
 6. a 100 ms run of the split path, which launches K1 and K2;
-7. the kernels' times at the main path's shapes beside their bounds:
+7. the plastic path at ``--scale`` with ``plasticity="pair_stdp"``: the
+   ``auto`` policy must resolve to ``fused``; warmup (which must leave the
+   weights alone), 100 ms presim, a ``--t-sim-plastic`` ms run; RTF,
+   overflow 0, rates in the same bands, launches (K4 and ``stdp_update``
+   once per step), every weight finite, the plastic ones in
+   ``[0, w_max]``, every other one bitwise the connectome's; the mean
+   plastic weight before and after (outside the timed window); and 200
+   profiled steps, as in 5;
+8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
    back-to-back call time from CUDA events (``call_ms``).
 
@@ -59,6 +73,7 @@ ENTRY_OPS = 3
 FULL_MEAN_RATES = [0.971, 4.746, 8.142, 0.991, 2.868, 5.396, 9.078, 7.523]
 RATE_REL_TOL, RATE_ABS_TOL = 0.5, 1.0      # validate/reference.py:60-78
 RING_RTOL = RING_ATOL = 1e-5
+POPS = ("L23E", "L4E", "L5E", "L6E", "L23I", "L4I", "L5I", "L6I")
 
 
 def fail(msg: str) -> None:
@@ -115,12 +130,59 @@ def device_ms(fn, iters: int = 64):
     return us / iters / 1e3 if us > 0 else None
 
 
-def timed(fn) -> dict:
+def timed(fn, iters: int = 64) -> dict:
     """``ms`` is the device time per call where the profiler sees it, else
     the back-to-back call time; both are kept."""
-    dev, call = device_ms(fn), call_ms(fn)
+    dev, call = device_ms(fn, iters), call_ms(fn, iters)
     return {"ms": call if dev is None else dev, "call_ms": call,
             "timing": "events" if dev is None else "profiler"}
+
+
+def bitwise(a, b) -> bool:
+    """Same shape and the same bits (float tensors compared as int32)."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def check_rates(rates, what: str) -> None:
+    for p, r, ref in zip(POPS, rates, FULL_MEAN_RATES):
+        lo = max(0.0, ref * (1 - RATE_REL_TOL) - RATE_ABS_TOL)
+        hi = ref * (1 + RATE_REL_TOL) + RATE_ABS_TOL
+        if not lo <= r <= hi:
+            fail(f"{what}: population {p} rate {r:.3f} Hz outside "
+                 f"[{lo:.3f}, {hi:.3f}]")
+
+
+def profile_window(sim, t_ms: float, ms_step: float) -> dict:
+    """Run ``t_ms`` more under ``torch.profiler``: device time per step by
+    kernel, the host's time by op, and the device's idle share of the
+    unprofiled step (``ms_step``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = sim.run(t_ms)
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    dev_ms_step = sum(by_kernel.values()) / res.n_steps
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the host's side: self time of each PyTorch op the profiler records
+    # (the Python between the ops, ctypes included, is not in it)
+    host = sorted(((a.key, a.self_cpu_time_total / 1e3 / res.n_steps)
+                   for a in prof.key_averages()
+                   if a.self_cpu_time_total > 0), key=lambda kv: -kv[1])
+    return dict(steps=res.n_steps, device_ms_per_step=dev_ms_step,
+                wall_ms_per_step=ms_step,
+                device_idle_share=1.0 - dev_ms_step / ms_step,
+                kernels_ms_per_step=json.dumps(
+                    {name[:60]: ms / res.n_steps for name, ms in top}),
+                host_op_ms_per_step=sum(ms for _, ms in host),
+                host_ops_ms_per_step=json.dumps(dict(host[:10])))
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -136,6 +198,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--t-sim", type=float, default=1000.0)
+    ap.add_argument("--t-sim-plastic", type=float, default=300.0)
     ap.add_argument("--seed", type=int, default=55)
     args = ap.parse_args()
 
@@ -149,6 +212,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.api import Simulator
     from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.core import plasticity as PL
     from repro_torch.core.connectivity import build_connectome
     from repro_torch.core.delivery import REGISTRY as STRATEGIES
     from repro_torch.core.engine import SimConfig
@@ -158,6 +222,8 @@ def main() -> None:
     from repro_torch.kernels import ell_deliver as K2
     from repro_torch.kernels import lif_deliver as K3
     from repro_torch.kernels import lif_update as K1
+    from repro_torch.kernels import stdp as KS
+    from repro_torch.kernels.ell_deliver import compact_ids_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -175,7 +241,9 @@ def main() -> None:
                 .splitlines() if "registers" in ln]
         say("ptxas", kernel=name, report=json.dumps(regs))
     grid = K3.cooperative_grid(dev, 77_170)
-    say("build", seconds=f"{build_s:.2f}", cooperative_grid=grid)
+    say("build", seconds=f"{build_s:.2f}", cooperative_grid=grid,
+        K4_grid=K3.cooperative_grid(dev, 77_170, plastic=True),
+        stdp_update_grid=KS.cooperative_grid(dev))
 
     prop = Propagators.make(NeuronParams(), 0.1)
     rng = np.random.default_rng(args.seed)
@@ -235,7 +303,7 @@ def main() -> None:
     ext_ex = on((rng.poisson(10.0, N) * c.w_ext).astype(np.float32))
     i_dc = torch.as_tensor(c.i_dc, device=dev)
     tbl = (tables.targets, tables.weights, tables.dbins)
-    max_err = {"lif_update": 0.0, "ell_deliver": 0.0, "lif_deliver": 0.0}
+    max_err = {name: 0.0 for name in _build.KERNELS}
     t_step = 1234
     for k in (0, 31, 256, 300):
         spk = spiked_with(k)
@@ -275,7 +343,83 @@ def main() -> None:
         say("K2+K3", spikes=k, budget=budget, overflow=int(ovf_k),
             ids_exact=True, K2_ring_max_abs_err=err,
             K3_max_abs_err=json.dumps(errs))
-    del tables, tbl, ring, r_k, r_p, out_k, out_p
+    del r_k, r_p, out_k, out_p
+
+    # -- 3b. K4 and stdp_update on the same tables ---------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ptab = PL.build_plastic_tables(tables, c.n_exc)
+    torch.cuda.synchronize()
+    ptab_s = time.perf_counter() - t0
+    pmask = ptab.plastic_out
+    ptab_bytes = sum(t.numel() * t.element_size() for t in (
+        ptab.in_syn_idx, ptab.plastic_out, ptab.plastic_in))
+    coef = PL.stdp_coefficients(PL.PairSTDP().scaled(c, 0.1))
+    # a handful of E->E weights beyond w_max, so that the clip has work
+    w_base = tables.weights.clone()
+    plastic_idx = torch.nonzero(pmask.view(-1)).view(-1)
+    n_plastic_syn = int(plastic_idx.numel())
+    pick = plastic_idx[torch.randperm(n_plastic_syn, device=dev)[:1000]]
+    w_base.view(-1)[pick] = 1.5 * coef.w_max
+    w_over = int((w_base[pmask] > coef.w_max).sum())
+    del plastic_idx, pick
+    say("plastic_tables", build_s=f"{ptab_s:.3f}", bytes=ptab_bytes,
+        k_in=ptab.in_syn_idx.shape[1], plastic_synapses=n_plastic_syn,
+        weights_above_w_max=w_over, coef=json.dumps(coef._asdict()))
+    traces = lambda: on(rng.uniform(0, 3, N).astype(np.float32))
+    for k in (0, 31, 256, 300):
+        spk = spiked_with(k)
+        ring = ring0()
+        x_pre, x_post = traces(), traces()
+        w_k, w_p = w_base.clone(), w_base.clone()
+        k4_in = (spk, *state_in, ext_ex, i_dc, x_pre, x_post, t_step)
+        k4_kw = dict(n_exc=c.n_exc, budget=budget, prop=prop, coef=coef)
+        out_k = K3.lif_deliver_plastic(ring.clone(), tables.targets, w_k,
+                                       tables.dbins, pmask, *k4_in, **k4_kw)
+        out_p = K3.lif_deliver_plastic_plain(
+            ring.clone(), tables.targets, w_p, tables.dbins, pmask, *k4_in,
+            **k4_kw)
+        torch.cuda.synchronize()
+        names = ("ring", "weights", "V", "I_ex", "I_in", "refrac", "spiked",
+                 "x_pre", "x_post", "ids", "overflow")
+        errs = {}
+        for name, a, b in zip(names, out_k, out_p):
+            if name in ("ring", "I_ex", "I_in"):
+                errs[name] = float((a - b).abs().max())
+                if not torch.allclose(a, b, rtol=RING_RTOL, atol=RING_ATOL):
+                    fail(f"K4 {name} differs at {k} spikes: max |diff| "
+                         f"{errs[name]}")
+            elif not bitwise(a, b):
+                fail(f"K4 {name} differs from the plain version at {k} "
+                     f"spikes")
+        max_err["lif_deliver_plastic"] = max(
+            max_err["lif_deliver_plastic"], *errs.values())
+        ids = out_k[9]
+        n_depressed = int((w_k != w_base).sum())
+        for full in (False, True):
+            for clip_all in (False, True):
+                w_k, w_p = w_base.clone(), w_base.clone()
+                stdp_in = (tables.targets, pmask, ptab.in_syn_idx,
+                           ptab.plastic_in, ids, x_pre, x_post, spk, coef)
+                got = KS.stdp_update(w_k, *stdp_in, full=full,
+                                     clip_all=clip_all)
+                want = KS.stdp_update_plain(w_p, *stdp_in, full=full,
+                                            clip_all=clip_all)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("weights", "x_pre", "x_post"), got,
+                                      want):
+                    if not bitwise(a, b):
+                        fail(f"stdp_update {name} differs from the plain "
+                             f"version at {k} spikes (full={full}, "
+                             f"clip_all={clip_all})")
+                changed = int((w_k != w_base).sum())
+                say("stdp_update", spikes=k, full=full, clip_all=clip_all,
+                    bitwise=True, weights_changed=changed)
+        say("K4", spikes=k, budget=budget, overflow=int(out_k[10]),
+            exact=json.dumps([m for m in names if m not in errs]),
+            weights_depressed=n_depressed, max_abs_err=json.dumps(errs))
+    del tables, tbl, ring, out_k, out_p, w_k, w_p, w_base, ptab, pmask, got
+    del want
     torch.cuda.empty_cache()
 
     # -- 4. the port against its plain reference on the card -----------------
@@ -297,6 +441,24 @@ def main() -> None:
         say("vs_reference", mode=mode, steps=rasters[mode][0].shape[0],
             spikes=int(rasters[mode][0].sum()), raster_equal=True,
             max_abs_dV_mV=dv)
+    plastic_runs = {}
+    for mode in ("reference", "fused", "split"):
+        s = Simulator(small, kernels=mode, probes=("spikes",),
+                      plasticity="pair_stdp", device=dev)
+        r = s.run(50.0)
+        plastic_runs[mode] = (r["spikes"], s.state[1].weights)
+    for mode in ("fused", "split"):
+        spikes, w = plastic_runs[mode]
+        if not np.array_equal(spikes, plastic_runs["reference"][0]):
+            fail(f"{mode} plastic path's spike raster differs from the "
+                 f"plain reference at scale 0.02")
+        if not bitwise(w, plastic_runs["reference"][1]):
+            fail(f"{mode} plastic path's final weights differ from the "
+                 f"plain reference at scale 0.02")
+        say("vs_reference_plastic", mode=mode, steps=spikes.shape[0],
+            spikes=int(spikes.sum()), raster_equal=True,
+            weights_bitwise=True)
+    del plastic_runs
 
     # -- 5. the main path -----------------------------------------------------
     cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
@@ -320,8 +482,7 @@ def main() -> None:
         run_ms=args.t_sim, steps=res.n_steps, wall_s=res.wall_s,
         rtf=res.rtf, ms_per_step=ms_step, overflow=res.overflow,
         spikes_per_step=float(res["pop_counts"].sum()) / res.n_steps)
-    say("rates_hz", **{p: f"{r:.3f}" for p, r in zip(
-        ("L23E", "L4E", "L5E", "L6E", "L23I", "L4I", "L5I", "L6I"), rates)})
+    say("rates_hz", **{p: f"{r:.3f}" for p, r in zip(POPS, rates)})
     say("launches", path="fused", **fused_launches,
         steps_incl_presim=steps_total)
     if res.overflow != 0:
@@ -329,41 +490,14 @@ def main() -> None:
     if fused_launches["lif_deliver"] != steps_total:
         fail(f"K3 launched {fused_launches['lif_deliver']} times for "
              f"{steps_total} steps")
-    for p, r, ref in zip(range(8), rates, FULL_MEAN_RATES):
-        lo = max(0.0, ref * (1 - RATE_REL_TOL) - RATE_ABS_TOL)
-        hi = ref * (1 + RATE_REL_TOL) + RATE_ABS_TOL
-        if not lo <= r <= hi:
-            fail(f"population {p} rate {r:.3f} Hz outside [{lo:.3f}, "
-                 f"{hi:.3f}]")
+    check_rates(rates, "main path")
     spikes_per_step = max(1, round(float(res["pop_counts"].sum())
                                    / res.n_steps))
     budget_main = sim.sim_config.spike_budget
 
     # where a step's time goes: device time by kernel over 200 more steps,
     # against the unprofiled wall time per step
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        res_p = sim.run(20.0)
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_kernel[e.name] = by_kernel.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
-    dev_ms_step = sum(by_kernel.values()) / res_p.n_steps
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-    # the host's side: self time of each PyTorch op the profiler records
-    # (the Python between the ops, ctypes included, is not in it)
-    host = sorted(((a.key, a.self_cpu_time_total / 1e3 / res_p.n_steps)
-                   for a in prof.key_averages()
-                   if a.self_cpu_time_total > 0), key=lambda kv: -kv[1])
-    say("main_path_profile", steps=res_p.n_steps,
-        device_ms_per_step=dev_ms_step, wall_ms_per_step=ms_step,
-        device_idle_share=1.0 - dev_ms_step / ms_step,
-        kernels_ms_per_step=json.dumps(
-            {name[:60]: ms / res_p.n_steps for name, ms in top}),
-        host_op_ms_per_step=sum(ms for _, ms in host),
-        host_ops_ms_per_step=json.dumps(dict(host[:10])))
+    say("main_path_profile", **profile_window(sim, 20.0, ms_step))
 
     del sim
     torch.cuda.empty_cache()
@@ -386,12 +520,83 @@ def main() -> None:
             or split_launches["ell_deliver"] != res_s.n_steps:
         fail(f"split path launched K1/K2 {split_launches} for "
              f"{res_s.n_steps} steps")
+    del sim
+    torch.cuda.empty_cache()
+
+    # -- 7. the plastic path --------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, connectome=c, plasticity="pair_stdp", device=dev)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pol = sim.sim_config.kernels
+    if pol.step != "fused":
+        fail(f"auto policy of the plastic path resolved to "
+             f"{pol.describe()}, not fused")
+    rule = sim.backend.bound
+    pmask, w_static = rule.plastic_mask, sim.backend.net.tables.weights
+    w_max = float(np.float32(rule.coef.w_max))
+    sim.warmup()
+    if not bitwise(sim.state[1].weights, w_static):
+        fail("warmup changed the session's plastic weights")
+    mean_before = float(PL.mean_plastic_weight(sim.state[1].weights, pmask))
+    _build.reset_launches()
+    res_pl = sim.run(args.t_sim_plastic)
+    plastic_launches = dict(_build.launches)
+    steps_pl = sim._steps(sim.t_presim) + res_pl.n_steps
+    w = sim.state[1].weights
+    mean_after = float(PL.mean_plastic_weight(w, pmask))
+    plastic_w = w[pmask]
+    finite = bool(torch.isfinite(w).all())
+    w_lo, w_hi = float(plastic_w.min()), float(plastic_w.max())
+    static_same = bitwise(torch.where(pmask, 0.0, w),
+                          torch.where(pmask, 0.0, w_static))
+    moved = int((w != w_static).sum())
+    del plastic_w
+    table_bytes_pl = sum(
+        t.numel() * t.element_size() for t in (
+            *sim.backend.net.tables, w, rule.tables.in_syn_idx,
+            rule.tables.plastic_out, rule.tables.plastic_in))
+    rates_pl = res_pl.summary()["rates_hz"]
+    ms_step_pl = res_pl.wall_s / res_pl.n_steps * 1e3
+    say("plastic_path", policy=pol.describe(),
+        budget=sim.sim_config.spike_budget,
+        setup_s=f"{setup_s:.1f}", presim_ms=sim.t_presim,
+        run_ms=args.t_sim_plastic, steps=res_pl.n_steps,
+        wall_s=res_pl.wall_s, rtf=res_pl.rtf, ms_per_step=ms_step_pl,
+        overflow=res_pl.overflow,
+        spikes_per_step=float(res_pl["pop_counts"].sum()) / res_pl.n_steps,
+        table_bytes_on_card=table_bytes_pl,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    say("rates_hz_plastic", **{p: f"{r:.3f}" for p, r in zip(POPS,
+                                                                rates_pl)})
+    say("plastic_weights", finite=finite, plastic_min=w_lo,
+        plastic_max=w_hi, w_max=w_max, static_bitwise=static_same,
+        entries_changed=moved, mean_before=mean_before,
+        mean_after=mean_after)
+    say("launches", path="plastic", **plastic_launches,
+        steps_incl_presim=steps_pl)
+    if res_pl.overflow != 0:
+        fail(f"overflow {res_pl.overflow} on the plastic path")
+    check_rates(rates_pl, "plastic path")
+    if not (finite and 0.0 <= w_lo and w_hi <= w_max and static_same):
+        fail("plastic weights out of [0, w_max], not finite, or a static "
+             "weight changed")
+    # K4 every step; the STDP update after K4 from the second step of a
+    # run on, plus the epilogue's whole step: once per step too
+    if plastic_launches["lif_deliver_plastic"] != steps_pl \
+            or plastic_launches["stdp_update"] != steps_pl:
+        fail(f"plastic path launched {plastic_launches} for {steps_pl} "
+             f"steps")
+    say("plastic_path_profile", **profile_window(sim, 20.0, ms_step_pl))
+    spikes_pl = max(1, round(float(res_pl["pop_counts"].sum())
+                             / res_pl.n_steps))
     tables = sim.backend.net.tables
     tbl = (tables.targets, tables.weights, tables.dbins)
 
-    # -- 7. kernel times at the main path's shapes ---------------------------
-    # Each call gets one of 64 spike vectors of the main path's mean count,
-    # so the gathered ELL rows (about 2 MB a call) come from device memory
+    # -- 8. kernel times at the main paths' shapes ---------------------------
+    # Each call gets one of 64 spike vectors of the path's mean count, so
+    # the gathered ELL rows (about 2 MB a call) come from device memory
     # rather than from the L2 copy the previous call left.
     k1_bytes = N * (7 * 4 + 4 * 4 + 1)             # 7 in, 4 out, spikes
     k1_args = tuple(x[:N] for x in k1_in)
@@ -437,14 +642,77 @@ def main() -> None:
         K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
         K2_index_add=json.dumps(k2_lib))
 
+    # K4 and stdp_update at the plastic path's shapes: its mean spike count,
+    # the session's weights (a copy), random traces
+    ptables = rule.tables
+    w_t = w.clone()
+    x_pre_t, x_post_t = traces(), traces()
+    spks_pl = [spiked_with(spikes_pl) for _ in range(64)]
+    ids_pl = [compact_ids_plain(x, budget_main)[0] for x in spks_pl]
+    ids_np_pl = [i.cpu().numpy() for i in ids_pl]
+    k4_state = (*state_in, ext_ex, i_dc, x_pre_t, x_post_t, t_step)
+    k4_kw = dict(n_exc=c.n_exc, budget=budget_main, prop=prop,
+                 coef=rule.coef)
+    k4 = timed(lambda i: K3.lif_deliver_plastic(
+        ring, tables.targets, w_t, tables.dbins, pmask, spks_pl[i % 64],
+        *k4_state, **k4_kw))
+    k4_plain = timed(lambda i: K3.lif_deliver_plastic_plain(
+        ring, tables.targets, w_t, tables.dbins, pmask, spks_pl[i % 64],
+        *k4_state, **k4_kw))
+    stdp_args = lambda i: (tables.targets, pmask, ptables.in_syn_idx,
+                           ptables.plastic_in, ids_pl[i % 64], x_pre_t,
+                           x_post_t, spks_pl[i % 64], rule.coef)
+    k5 = timed(lambda i: KS.stdp_update(w_t, *stdp_args(i), full=False,
+                                        clip_all=False))
+    k5_plain = timed(lambda i: KS.stdp_update_plain(
+        w_t, *stdp_args(i), full=False, clip_all=False))
+    k5_full = timed(lambda i: KS.stdp_update(w_t, *stdp_args(i), full=True,
+                                             clip_all=False))
+    k5_clip = timed(lambda i: KS.stdp_update(w_t, *stdp_args(i), full=False,
+                                             clip_all=True), iters=8)
+    # the data these calls need, averaged over the 64 spike vectors
+    fill = N * tables.targets.shape[1]
+    cnt = {key: [] for key in ("out", "out_plastic", "in", "in_plastic",
+                               "sources")}
+    for ids in ids_np_pl:
+        ids = ids[ids < N]
+        rows = c.targets[ids]
+        real = rows < N
+        cnt["out"].append(real.sum())
+        cnt["out_plastic"].append(((ids < c.n_exc)[:, None]
+                                   & (rows < c.n_exc)).sum())
+        syn = ptables.in_syn_idx[torch.as_tensor(ids, device=dev)].cpu()
+        pin = ptables.plastic_in[torch.as_tensor(ids, device=dev)].cpu()
+        cnt["in"].append(int((syn != fill).sum()))
+        cnt["in_plastic"].append(int(pin.sum()))
+        cnt["sources"].append(int(torch.unique(
+            syn[pin] // tables.targets.shape[1]).numel()))
+    cnt = {key: float(np.mean(v)) for key, v in cnt.items()}
+    k4_bytes = (N * (6 * 4 + 4 * 4 + 1) + N + 2 * 2 * (N + 1) * 4
+                + 4 * budget_main + 4 + cnt["out"] * (12 + 8)
+                + cnt["out"] + 4 * cnt["out_plastic"] + 16 * N)
+    k4_ops = (LIF_OPS * N + ENTRY_OPS * cnt["out"]
+              + 2 * cnt["out_plastic"] + 4 * N)
+    # ids; the IN rows' masks, and the plastic entries' index, weight
+    # (read and written) and source trace; the OUT rows' masks and plastic
+    # weights, read for the clip
+    k5_bytes = (4 * budget_main + cnt["in"] + 16 * cnt["in_plastic"]
+                + 4 * cnt["sources"] + cnt["out"] + 4 * cnt["out_plastic"])
+    say("timing_plastic", spikes=spikes_pl, entries=json.dumps(cnt),
+        K4=json.dumps(k4), stdp_update=json.dumps(k5),
+        stdp_update_full_step=json.dumps(k5_full),
+        stdp_update_whole_table_clip=json.dumps(k5_clip))
+
     def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err):
         b_ms, b_by = bound(n_bytes, n_ops)
+        by_path = {"fused": fused_launches[name],
+                   "split": split_launches[name],
+                   "plastic": plastic_launches[name]}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,
-                "launches": fused_launches[name] + split_launches[name],
-                "launches_by_path": {"fused": fused_launches[name],
-                                     "split": split_launches[name]},
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
                 "max_abs_err": err, "ms": t["ms"], "plain_ms": plain["ms"],
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else lib["ms"],
@@ -462,6 +730,13 @@ def main() -> None:
             "src/repro/kernels/lif_deliver.py:199", k3, k3_plain,
             k3_bytes, LIF_OPS * N + ENTRY_OPS * n_entries, None,
             max_err["lif_deliver"]),
+        row("lif_deliver_plastic", "lif_deliver.cu",
+            "src/repro/kernels/lif_deliver.py:268", k4, k4_plain,
+            k4_bytes, k4_ops, None, max_err["lif_deliver_plastic"]),
+        row("stdp_update", "stdp_update.cu",
+            "src/repro/core/plasticity.py:206 (XLA, no Pallas kernel)", k5,
+            k5_plain, k5_bytes, 2 * cnt["in_plastic"], None,
+            max_err["stdp_update"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -8,9 +8,14 @@ as in ``repro.api.probes``::
     spikes()           [T, N] bool raster (memory-heavy at scale)
     total_counts()     [T] int32 network-wide spike count
     voltage(ids=None)  [T, len(ids)] membrane potentials (all N if None)
+    mean_plastic_weight()  [T] mean plastic weight (needs plasticity=...;
+                       it reads the whole weight table, 2.6 GB a step at
+                       full scale)
 
-Stream probes (in-loop accumulators) wait for a later slice.  No probe
-reads anything back to the host inside the loop.
+Stream probes (in-loop accumulators, ``weight_stats`` among them) wait for
+a later slice.  No probe reads anything back to the host inside the loop.
+On the fused path the plastic state a probe sees lags one step, as in the
+reference: step i's context carries the update of step i - 1's spikes.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch.core import plasticity
+
 
 class ProbeContext(NamedTuple):
     """What a probe may read each step."""
@@ -26,6 +33,8 @@ class ProbeContext(NamedTuple):
     spiked: torch.Tensor        # [N] bool, this step's spikes
     net: object                 # device tables (Network)
     n_pops: int                 # population count
+    plastic: object = None      # PlasticState, plastic runs only
+    plastic_mask: Optional[torch.Tensor] = None  # [N+1, K] bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +85,24 @@ def voltage(ids: Optional[Sequence[int]] = None) -> Probe:
     return Probe("voltage", fn)
 
 
+def mean_plastic_weight() -> Probe:
+    """Mean weight over the plastic synapses; needs ``plasticity=``."""
+    def fn(ctx: ProbeContext) -> torch.Tensor:
+        if ctx.plastic is None:
+            raise ValueError(
+                "mean_plastic_weight probe requires a plasticity-enabled "
+                "run (pass plasticity=... to Simulator)")
+        return plasticity.mean_plastic_weight(ctx.plastic.weights,
+                                              ctx.plastic_mask)
+    return Probe("mean_plastic_weight", fn)
+
+
 _BUILTIN = {
     "pop_counts": pop_counts,
     "spikes": spikes,
     "total_counts": total_counts,
     "voltage": voltage,
+    "mean_plastic_weight": mean_plastic_weight,
 }
 
 

@@ -8,10 +8,14 @@
     res = sim.run(1000.0)            # 100 ms presim (untimed), then 1 s
     print(res.rtf, res.summary()["rates_hz"])
 
+    plastic = Simulator(MicrocircuitConfig(scale=1.0, strategy="ell"),
+                        plasticity="pair_stdp")   # E->E pair STDP
+    sim_state, plastic_state = plastic.state
+
 The session runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 a machine without CUDA, ``Simulator(...)`` with no device raises instead of
-carrying on on the CPU.  ``run_chunked``, ``run_batch``, checkpoints, the
-instrumented and sharded backends and plasticity wait for later slices.
+carrying on on the CPU.  ``run_chunked``, ``run_batch``, checkpoints and
+the instrumented and sharded backends wait for later slices.
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.api.backends import FusedBackend
 from repro_torch.api.results import RunResult
 from repro_torch.core.connectivity import Connectome, build_connectome
 from repro_torch.core.engine import SimConfig, SimState
+from repro_torch.core.plasticity import PlasticState
 
 
 def session_device(device=None) -> torch.device:
@@ -49,15 +54,17 @@ class Simulator:
     """A simulation session: one network, one backend, many runs.
 
     ``config`` is a model config (``MicrocircuitConfig``); ``connectome``
-    skips the build.  ``kernels=`` (a mode string),
-    ``stimulus=`` (a timeline) and other ``SimConfig`` fields go in
-    ``**overrides``.  ``config.seed`` seeds both the connectome and the
-    session's ``torch.Generator``.
+    skips the build.  ``plasticity`` is a rule (a registry kind name such
+    as ``"pair_stdp"``, a spec dict or a ``PlasticityRule``); the session's
+    state is then the pair ``(SimState, PlasticState)``.  ``kernels=`` (a
+    mode string), ``stimulus=`` (a timeline) and other ``SimConfig`` fields
+    go in ``**overrides``.  ``config.seed`` seeds both the connectome and
+    the session's ``torch.Generator``.
     """
 
     def __init__(self, config, *, connectome: Optional[Connectome] = None,
                  probes: Sequence = ("pop_counts",), device=None,
-                 **overrides):
+                 plasticity=None, **overrides):
         self.device = session_device(device)
         self.config = config
         self.seed = int(config.seed)
@@ -74,7 +81,8 @@ class Simulator:
         if overrides:
             sim_config = dataclasses.replace(sim_config, **overrides)
         self.t_presim = float(config.t_presim)
-        self.backend = FusedBackend()
+        self.backend = FusedBackend(plasticity=plasticity)
+        self.plasticity = self.backend.plasticity
         self.backend.build(connectome, sim_config, self.device)
         self.sim_config = self.backend.cfg          # resolved
         self.probes = probes_mod.resolve(probes)
@@ -91,20 +99,41 @@ class Simulator:
         self._overflow_seen = 0
 
     @property
-    def state(self) -> SimState:
+    def state(self):
+        """The ``SimState``, or ``(SimState, PlasticState)`` in a plastic
+        session."""
         return self._state
 
     @state.setter
-    def state(self, value: SimState) -> None:
-        """Carry a state in (e.g. from ``repro_torch.convert``); the
-        session's counters stay, so a pending presim runs from it."""
-        if value.ring.device != self.device:
-            raise ValueError(f"state lies on {value.ring.device}, the "
+    def state(self, value) -> None:
+        """Carry a state in (e.g. from ``repro_torch.convert``): a
+        ``SimState``, or in a plastic session the pair.  The session's
+        counters stay, so a pending presim runs from it."""
+        if self.plasticity is not None:
+            if not (isinstance(value, tuple) and len(value) == 2
+                    and isinstance(value[1], PlasticState)):
+                raise TypeError("a plastic session's state is the pair "
+                                "(SimState, PlasticState)")
+            sim, ps = value
+            table = self.backend.net.tables.weights
+            if ps.weights.shape != table.shape \
+                    or ps.weights.device != table.device:
+                raise ValueError(
+                    f"plastic weights {tuple(ps.weights.shape)} on "
+                    f"{ps.weights.device}; the session's table is "
+                    f"{tuple(table.shape)} on {table.device}")
+        else:
+            sim, ps = value, None
+        if sim.ring.device != self.device:
+            raise ValueError(f"state lies on {sim.ring.device}, the "
                              f"session on {self.device}")
-        if value.generator is None:
-            value = value._replace(generator=self._state.generator)
-        self._state = value
-        self._overflow_seen = int(value.overflow.item())
+        if sim.generator is None:
+            sim = sim._replace(generator=self._sim_state().generator)
+        self._state = sim if ps is None else (sim, ps)
+        self._overflow_seen = int(sim.overflow.item())
+
+    def _sim_state(self) -> SimState:
+        return self._state if self.plasticity is None else self._state[0]
 
     def _steps(self, t_ms: float) -> int:
         return int(round(t_ms / self.sim_config.dt))
@@ -119,12 +148,16 @@ class Simulator:
         """Build and load every kernel the run will launch, and run one
         step on a copy of the state (device allocations, library loading),
         so that a following ``run`` measures execution only.  The session
-        state is untouched."""
-        st = self._state
+        state is untouched: the ring and the plastic weights, which the
+        kernels update in place, are copied."""
+        st = self._sim_state()
         gen = torch.Generator(device=self.device)
         gen.set_state(st.generator.get_state())
         scratch = SimState(st.neuron, st.ring.clone(), st.t, gen,
                            st.overflow.clone())
+        if self.plasticity is not None:
+            scratch = (scratch, self._state[1]._replace(
+                weights=self._state[1].weights.clone()))
         self.backend.run(scratch, 1, self.probes)
         self._sync()
 

@@ -9,6 +9,14 @@ Keys: ``targets``, ``weights``, ``dbins`` (the ``[N+1, K]`` event tables,
 sentinel row included), ``k_ext``, ``i_dc``, ``pop_of``, ``V``, ``I_ex``,
 ``I_in``, ``refrac``, ``ring`` (``[D, 2, N+1]``), ``t`` and ``overflow``.
 The JAX PRNG key has no counterpart: the port's state gets ``generator``.
+
+The plastic side (``plastic_to_torch`` / ``plastic_to_numpy``) carries the
+JAX package's ``PlasticState`` and ``PlasticTables`` under ``PLASTIC_KEYS``
+(``weights`` flat, ``(N+1) * K_out + 1`` long: the ``[N+1, K_out]`` table
+and one trailing dump slot, which nothing ever writes) into the port's
+layout, where the weights are the ``[N+1, K]`` table of the delivery
+strategy, ``K >= K_out`` columns zero-padded, and ``in_syn_idx`` indexes it
+with stride ``K``; and back.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import torch
 from repro_torch.core.delivery import EventTables
 from repro_torch.core.engine import Network, SimState
 from repro_torch.core.neuron import NeuronState
+from repro_torch.core.plasticity import PlasticState, PlasticTables
 
 KEYS = ("targets", "weights", "dbins", "k_ext", "i_dc", "pop_of", "V",
         "I_ex", "I_in", "refrac", "ring", "t", "overflow")
@@ -68,4 +77,64 @@ def to_numpy(net: Network, state: SimState) -> Dict[str, np.ndarray]:
         "ring": host(state.ring),
         "t": np.asarray(state.t, np.int32),
         "overflow": host(state.overflow),
+    }
+
+
+PLASTIC_KEYS = ("weights", "x_pre", "x_post", "out_targets", "out_dbins",
+                "in_syn_idx", "plastic_out", "plastic_in")
+
+
+def _pad_cols(a: np.ndarray, k: int, fill) -> np.ndarray:
+    out = np.full((a.shape[0], k), fill, a.dtype)
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def plastic_to_torch(arrays: Dict[str, np.ndarray], k: int, device
+                     ) -> Tuple[PlasticTables, PlasticState]:
+    """The JAX package's plastic arrays -> the port's ``(PlasticTables,
+    PlasticState)`` for a delivery table of ``k`` columns; copies."""
+    missing = [name for name in PLASTIC_KEYS if name not in arrays]
+    if missing:
+        raise KeyError(f"missing arrays {missing}")
+    tgt = np.asarray(arrays["out_targets"], np.int32)
+    rows, k_out = tgt.shape
+    n = rows - 1
+    w = np.asarray(arrays["weights"], np.float32)
+    if w.shape != (rows * k_out + 1,) or k < k_out:
+        raise ValueError(f"weights of {w.shape} do not fit a [{rows}, "
+                         f"{k_out}] table padded to {k} columns")
+    syn = np.asarray(arrays["in_syn_idx"], np.int64)
+    on = lambda a: torch.from_numpy(np.array(a, copy=True)).to(device)
+    tables = PlasticTables(
+        out_targets=on(_pad_cols(tgt, k, n)),
+        out_dbins=on(_pad_cols(np.asarray(arrays["out_dbins"], np.int32), k,
+                               1)),
+        in_syn_idx=on(((syn // k_out) * k + syn % k_out).astype(np.int32)),
+        plastic_out=on(_pad_cols(np.asarray(arrays["plastic_out"], bool), k,
+                                 False)),
+        plastic_in=on(np.asarray(arrays["plastic_in"], bool)))
+    state = PlasticState(
+        weights=on(_pad_cols(w[:-1].reshape(rows, k_out), k, 0.0)),
+        x_pre=on(np.asarray(arrays["x_pre"], np.float32)),
+        x_post=on(np.asarray(arrays["x_post"], np.float32)))
+    return tables, state
+
+
+def plastic_to_numpy(tables: PlasticTables, state: PlasticState,
+                     k_out: int) -> Dict[str, np.ndarray]:
+    """The port's plastic tables and state -> the JAX package's layout
+    (``PLASTIC_KEYS``) with ``k_out`` columns."""
+    host = lambda x: x.detach().cpu().numpy()
+    k = tables.out_targets.shape[1]
+    syn = host(tables.in_syn_idx).astype(np.int64)
+    w = host(state.weights)[:, :k_out]
+    return {
+        "weights": np.concatenate([w.reshape(-1), np.zeros(1, np.float32)]),
+        "x_pre": host(state.x_pre), "x_post": host(state.x_post),
+        "out_targets": host(tables.out_targets)[:, :k_out],
+        "out_dbins": host(tables.out_dbins)[:, :k_out],
+        "in_syn_idx": ((syn // k) * k_out + syn % k).astype(np.int32),
+        "plastic_out": host(tables.plastic_out)[:, :k_out],
+        "plastic_in": host(tables.plastic_in),
     }

@@ -94,9 +94,17 @@ class DeliveryStrategy:
     tables on the host, ``deliver`` scatters one step's spikes."""
 
     name: str = "abstract"
+    supports_live_weights: bool = False
 
     def prepare(self, c, cfg, device) -> Any:
         raise NotImplementedError
+
+    def live_tables(self, tables: Any, weights: torch.Tensor) -> Any:
+        """``tables`` with the live plastic ``weights`` (the strategy's own
+        ``[N+1, K]`` layout) swapped in: a re-wrap, never a copy."""
+        raise NotImplementedError(
+            f"delivery strategy {self.name!r} has no live-weight path "
+            f"(live_tables); plasticity requires 'event' or 'ell'")
 
     def deliver(self, ring: torch.Tensor, tables: Any, spiked: torch.Tensor,
                 t: int, n_exc: int, cfg) -> Tuple[torch.Tensor,
@@ -136,9 +144,14 @@ class EventDelivery(DeliveryStrategy):
     """Budgeted event-driven gather + one ``index_add_``."""
 
     name = "event"
+    supports_live_weights = True
 
     def prepare(self, c, cfg, device) -> EventTables:
         return make_event_tables(c.targets, c.weights, c.dbins, device)
+
+    def live_tables(self, tables: EventTables,
+                    weights: torch.Tensor) -> EventTables:
+        return tables._replace(weights=weights)
 
     def deliver(self, ring, tables, spiked, t, n_exc, cfg):
         return deliver_event(ring, tables, spiked, t, n_exc,
@@ -151,6 +164,13 @@ class EllDelivery(DeliveryStrategy):
 
     name = "ell"
     block_k = 128            # ELL row pad (the reference's lane-aligned K)
+    supports_live_weights = True
+
+    def live_tables(self, tables: EventTables,
+                    weights: torch.Tensor) -> EventTables:
+        """The live weights are kept padded to ``K_pad`` already (the
+        reference pads them every step, ``delivery.py:436``)."""
+        return tables._replace(weights=weights)
 
     def k_pad(self, k: int) -> int:
         return max(self.block_k, -(-k // self.block_k) * self.block_k)

@@ -42,10 +42,11 @@ class SimConfig:
     kernels: Optional[Any] = None      # mode string | resolved KernelPolicy
 
 
-def resolve_sim_config(cfg: SimConfig, c: Connectome, device) -> SimConfig:
+def resolve_sim_config(cfg: SimConfig, c: Connectome, device,
+                       plastic: Optional[str] = None) -> SimConfig:
     """Fill connectome- and device-dependent defaults once: the strategy
-    name, the auto spike budget, the kernel policy (against ``device``),
-    and the stimulus timeline."""
+    name, the auto spike budget, the kernel policy (against ``device`` and
+    the plasticity rule's kind ``plastic``), and the stimulus timeline."""
     dlv.get_strategy(cfg.strategy)
     if cfg.spike_budget is None:
         cfg = dataclasses.replace(
@@ -53,7 +54,7 @@ def resolve_sim_config(cfg: SimConfig, c: Connectome, device) -> SimConfig:
     if kpol.policy_of(cfg) is None:
         cfg = dataclasses.replace(cfg, kernels=kpol.resolve(
             cfg.kernels, strategy=cfg.strategy, state_dtype=cfg.state_dtype,
-            device=device))
+            device=device, plastic=plastic))
     stimulus = (stim.PoissonBackground(),) if cfg.stimulus is None \
         else stim.resolve_timeline(cfg.stimulus)
     return dataclasses.replace(cfg, stimulus=stimulus)
@@ -149,16 +150,44 @@ def fused_update_phase(state: SimState, net: Network, prop: Propagators,
     ``spiked_prev`` with zeros and delivers the last step's spikes after
     the loop.  Returns ``(state, spiked)`` with ``t`` advanced by one."""
     from repro_torch.kernels import ops as kops
-    dtype = state.ring.dtype
-    ext_ex, i_dc = _external_drive(state, net, w_ext, dtype, drive)
-    if ext_ex is None:
-        ext_ex = torch.zeros(n, dtype=dtype, device=state.ring.device)
-    i_dc = i_dc.expand(n).to(dtype)
+    ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
     neuron, ring, spiked, ovf = kops.lif_deliver(
         state.neuron, state.ring, state.t, spiked_prev, net.tables, prop,
         ext_ex, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget)
     return SimState(neuron, ring, state.t + 1, state.generator,
                     state.overflow + ovf), spiked
+
+
+def fused_plastic_update_phase(state: SimState, ps, net: Network,
+                               prop: Propagators, cfg: SimConfig,
+                               w_ext: float, n: int, n_exc: int,
+                               spiked_prev: torch.Tensor, drive: stim.Drive,
+                               bound, trace: bool):
+    """One rotated step of the fused plastic path (kernel K4): deliver
+    ``spiked_prev`` at phase ``t - 1`` through the live table ``ps.weights``
+    and depress its rows in place, decay and bump the traces (unless
+    ``trace`` is False: the loop's first step delivers nothing), then
+    integrate step ``t``.  The potentiation and the clip of the delivered
+    ids are the caller's (``plasticity.stdp_pot_clip``).  Returns
+    ``(state, ps', spiked, ids)``; ``ps'`` holds the new traces."""
+    from repro_torch.kernels import ops as kops
+    ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
+    neuron, ring, spiked, ps, ids, ovf = kops.lif_deliver_plastic(
+        state.neuron, state.ring, state.t, spiked_prev, net.tables,
+        bound.tables.plastic_out, ps, prop, ext_ex, i_dc, n_exc=n_exc,
+        spike_budget=cfg.spike_budget, coef=bound.coef, trace=trace)
+    return (SimState(neuron, ring, state.t + 1, state.generator,
+                     state.overflow + ovf), ps, spiked, ids)
+
+
+def _fused_drive(state: SimState, net: Network, w_ext: float, n: int,
+                 drive: stim.Drive):
+    """The external drive as the fused kernels take it: two [N] tensors."""
+    dtype = state.ring.dtype
+    ext_ex, i_dc = _external_drive(state, net, w_ext, dtype, drive)
+    if ext_ex is None:
+        ext_ex = torch.zeros(n, dtype=dtype, device=state.ring.device)
+    return ext_ex, i_dc.expand(n).to(dtype)
 
 
 def deliver_phase(state: SimState, net: Network, cfg: SimConfig,

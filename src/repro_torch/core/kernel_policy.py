@@ -7,11 +7,13 @@ device and connectome into a ``KernelPolicy``; every field is concrete.
 
 Modes
 -----
-``auto``       on ``cuda``: the fused one-kernel step (K3) for the ``ell``
-               strategy with float32 state, the split kernels (K1 + K2)
-               otherwise.  On the CPU: the plain PyTorch versions.
-``fused``      force the fused step.  Raises unless strategy == "ell" and
-               float32 state.
+``auto``       on ``cuda``: the fused one-kernel step (K3, or K4 and
+               ``stdp_update`` for a ``pair_stdp`` run) for the ``ell``
+               strategy with float32 state, the split kernels (K1 + K2,
+               and ``stdp_update`` for a plastic run) otherwise.  On the
+               CPU: the plain PyTorch versions.
+``fused``      force the fused step.  Raises unless strategy == "ell",
+               float32 state, and no plasticity or ``pair_stdp``.
 ``split``      force the per-phase kernels (``lif_update`` + delivery).
 ``reference``  the plain PyTorch versions on any device (``lif_step`` +
                ``index_add_`` delivery) -- only when asked for by name.
@@ -39,14 +41,21 @@ class KernelPolicy:
     step: str        # "fused" (K3) | "split" (update + deliver phases)
     kernels: bool    # the hand-written kernels, else the plain versions
     deliver: str     # what scatters spikes: "kernel" (K2/K3) | "index_add"
+    plastic: Optional[str] = None   # the plasticity rule's kind, or None
 
     def describe(self) -> str:
-        """One-line form, e.g. ``auto[step=fused,lif=kernel,deliver=kernel]``."""
+        """One-line form, e.g. ``auto[step=fused,lif=kernel,deliver=kernel]``
+        or, for a plastic run, ``...,plastic=pair_stdp:kernel]`` (the
+        plastic update by its kernel or its plain version)."""
         lif = "kernel" if self.kernels else "plain"
-        return f"{self.mode}[step={self.step},lif={lif},deliver={self.deliver}]"
+        parts = f"step={self.step},lif={lif},deliver={self.deliver}"
+        if self.plastic is not None:
+            parts += f",plastic={self.plastic}:{lif}"
+        return f"{self.mode}[{parts}]"
 
 
-def fused_eligible(strategy: str, state_dtype) -> tuple[bool, str]:
+def fused_eligible(strategy: str, state_dtype,
+                   plastic: Optional[str] = None) -> tuple[bool, str]:
     """(eligible, reason-if-not) for the fused one-kernel step."""
     if strategy != "ell":
         return False, (f"the fused step requires the 'ell' delivery "
@@ -54,11 +63,15 @@ def fused_eligible(strategy: str, state_dtype) -> tuple[bool, str]:
     if state_dtype != torch.float32:
         return False, (f"the fused step requires float32 state "
                        f"(got {state_dtype})")
+    if plastic not in (None, "pair_stdp"):
+        return False, (f"the fused plastic step (K4) is pair STDP's "
+                       f"(got the rule {plastic!r})")
     return True, ""
 
 
 def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
-            state_dtype, device) -> KernelPolicy:
+            state_dtype, device, plastic: Optional[str] = None
+            ) -> KernelPolicy:
     """Resolve a mode (None means ``auto``) against the session's device.
     Idempotent: a resolved policy is returned as it is."""
     if isinstance(kernels, KernelPolicy):
@@ -70,7 +83,7 @@ def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
     if mode not in MODES:
         raise ValueError(f"kernel mode {mode!r} not in {MODES}")
     on_cuda = torch.device(device).type == "cuda"
-    eligible, why = fused_eligible(strategy, state_dtype)
+    eligible, why = fused_eligible(strategy, state_dtype, plastic)
     if mode == "fused" and not eligible:
         raise ValueError(f"kernels='fused': {why}")
     fused = mode == "fused" or (mode == "auto" and on_cuda and eligible)
@@ -78,7 +91,7 @@ def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
     # only the ell strategy has a delivery kernel; event is index_add_
     deliver = "kernel" if use and strategy == "ell" else "index_add"
     return KernelPolicy(mode=mode, step="fused" if fused else "split",
-                        kernels=use, deliver=deliver)
+                        kernels=use, deliver=deliver, plastic=plastic)
 
 
 def policy_of(cfg) -> Optional[KernelPolicy]:

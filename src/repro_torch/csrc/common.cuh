@@ -43,3 +43,31 @@ __device__ __forceinline__ void lif_neuron(
   *refo = fired ? p.ref_steps : max(refrac - 1, 0);
   *spk = fired ? 1 : 0;
 }
+
+// Pair STDP, one synapse or trace at a time (K4 in lif_deliver.cu, the
+// update in stdp_update.cu), each in the plain version's operation order
+// (repro_torch/kernels/stdp.py) with every product and sum rounded on its
+// own, so both kernels equal it bit for bit.
+
+// Depression of a plastic entry: w + (-(dep * x_post[target])).
+__device__ __forceinline__ float stdp_depressed(float w, float dep,
+                                                float x_post) {
+  return __fadd_rn(w, -__fmul_rn(dep, x_post));
+}
+
+// Potentiation of a plastic entry: w + pot * x_pre[source].
+__device__ __forceinline__ float stdp_potentiated(float w, float pot,
+                                                  float x_pre) {
+  return __fadd_rn(w, __fmul_rn(pot, x_pre));
+}
+
+// The clip to [0, w_max]; a NaN passes, as through torch.clamp.
+__device__ __forceinline__ float stdp_clipped(float w, float w_max) {
+  return w < 0.0f ? 0.0f : (w > w_max ? w_max : w);
+}
+
+// A trace's decay and bump: x * decay + spike.
+__device__ __forceinline__ float stdp_trace(float x, float decay,
+                                            unsigned char spiked) {
+  return __fadd_rn(__fmul_rn(x, decay), spiked ? 1.0f : 0.0f);
+}

@@ -117,11 +117,21 @@ struct EllTables {
   int k_pad;
 };
 
-// Scatters entries [j0, j1) of source row `sid` into the ring at phase t.
-__device__ __forceinline__ void scatter_chunk(const EllTables& tb, int sid,
-                                              int j0, int j1, float* ring,
-                                              int t, int d_bins, int n_cols,
-                                              int n_exc) {
+// K4's pair-STDP depression, folded into the scatter: each plastic entry
+// is written back depressed right after its weight was scattered.
+struct Depression {
+  float* weights;                // the live table: EllTables::weights
+  const unsigned char* pmask;    // [N+1, k_pad] plastic (E->E) entries
+  const float* x_post;           // [N] post traces before this step's bump
+  float dep_coef;
+};
+
+// Scatters entries [j0, j1) of source row `sid` into the ring at phase t
+// (and, with kDepress, depresses the row's plastic entries in place).
+template <bool kDepress = false>
+__device__ __forceinline__ void scatter_chunk(
+    const EllTables& tb, int sid, int j0, int j1, float* ring, int t,
+    int d_bins, int n_cols, int n_exc, const Depression& dep = {}) {
   const int n = n_cols - 1;
   const int ch = sid >= n_exc ? 1 : 0;
   const size_t row = static_cast<size_t>(sid) * tb.k_pad;
@@ -129,7 +139,12 @@ __device__ __forceinline__ void scatter_chunk(const EllTables& tb, int sid,
     const int tg = tb.targets[row + j];
     if (tg >= n) continue;              // padding: weight 0 into the dump
     const int slot = (t + tb.dbins[row + j]) % d_bins;
-    atomicAdd(ring + (static_cast<size_t>(slot) * 2 + ch) * n_cols + tg,
-              tb.weights[row + j]);
+    const float w = tb.weights[row + j];
+    atomicAdd(ring + (static_cast<size_t>(slot) * 2 + ch) * n_cols + tg, w);
+    if constexpr (kDepress) {
+      if (dep.pmask[row + j])
+        dep.weights[row + j] = stdp_depressed(w, dep.dep_coef,
+                                              dep.x_post[tg]);
+    }
   }
 }

@@ -8,9 +8,10 @@ file name carries a hash of the sources and flags, so an edited source is
 rebuilt, never reused stale.  All sources are compiled together, one
 ``nvcc`` process each, started at once.
 
-``launches`` holds one plain integer per kernel.  A wrapper adds one where
-it launches its kernel, and nowhere else, so a run can show that its path
-went through the kernels (``reset_launches`` before, read after).
+``launches`` holds one plain integer per kernel (``KERNELS``; K3 and K4 are
+two instantiations of one template in one library).  A wrapper adds one
+where it launches its kernel, and nowhere else, so a run can show that its
+path went through the kernels (``reset_launches`` before, read after).
 """
 from __future__ import annotations
 
@@ -28,12 +29,16 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
 
-#: kernel name -> its source in csrc/
+#: library name -> its source in csrc/
 SOURCES = {
     "lif_update": "lif_update.cu",
     "ell_deliver": "ell_deliver.cu",
     "lif_deliver": "lif_deliver.cu",
+    "stdp_update": "stdp_update.cu",
 }
+#: kernel name -> the library that holds it
+KERNELS = {**{name: name for name in SOURCES},
+           "lif_deliver_plastic": "lif_deliver"}
 
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn: no multiply-add
 # may contract into an FMA, or V would differ from the plain version.
@@ -41,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-launches: Dict[str, int] = {name: 0 for name in SOURCES}
+launches: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

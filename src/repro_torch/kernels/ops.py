@@ -1,5 +1,5 @@
 """Wrappers around the kernels with the reference's signatures
-(``repro/kernels/ops.py:26``, ``:44`` and ``:64``).
+(``repro/kernels/ops.py:26``, ``:44``, ``:64`` and ``:94``).
 
 Each takes the engine's types (``NeuronState``, ``EventTables``) and runs
 its kernel on CUDA tensors or its plain version on CPU tensors.
@@ -47,3 +47,25 @@ def lif_deliver(state: NeuronState, ring: torch.Tensor, t: int,
         i_dc.contiguous(), t - 1, n_exc=n_exc, budget=spike_budget,
         prop=prop)
     return NeuronState(V, I_ex, I_in, refrac), ring, spiked, overflow
+
+
+def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t: int,
+                        spiked_prev: torch.Tensor, tables, pmask, ps,
+                        prop: Propagators, ext_ex: torch.Tensor,
+                        i_dc: torch.Tensor, *, n_exc: int, spike_budget: int,
+                        coef, trace: bool = True):
+    """Fused plastic step (K4): deliver ``spiked_prev`` at phase ``t - 1``
+    through the live table ``ps.weights`` (depressing its plastic entries
+    ``pmask`` in place), update the traces, then integrate step ``t``.
+    Returns ``(neuron', ring, spiked, ps', ids, overflow)``; ``ps'`` is a
+    ``PlasticState`` of the same table and the new traces, ``ids`` the
+    delivered ids for ``stdp_pot_clip``."""
+    (ring, w, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids,
+     overflow) = _fused.lif_deliver_plastic(
+        ring, tables.targets, ps.weights, tables.dbins, pmask, spiked_prev,
+        state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
+        i_dc.contiguous(), ps.x_pre, ps.x_post, t - 1, n_exc=n_exc,
+        budget=spike_budget, prop=prop, coef=coef, trace=trace)
+    return (NeuronState(V, I_ex, I_in, refrac), ring, spiked,
+            ps._replace(weights=w, x_pre=x_pre, x_post=x_post), ids,
+            overflow)

@@ -232,3 +232,26 @@ def test_policy_describe(mode, strategy, want):
     """describe() names what runs: the event strategy has no delivery
     kernel, so it reports index_add_ whatever the mode."""
     assert _resolve(mode, strategy=strategy).describe() == want
+
+
+@pytest.mark.parametrize("mode,plastic,want", [
+    (None, "pair_stdp",
+     "auto[step=fused,lif=kernel,deliver=kernel,plastic=pair_stdp:kernel]"),
+    (None, "other_rule",
+     "auto[step=split,lif=kernel,deliver=kernel,plastic=other_rule:kernel]"),
+    ("reference", "pair_stdp",
+     "reference[step=split,lif=plain,deliver=index_add,"
+     "plastic=pair_stdp:plain]"),
+])
+def test_policy_plastic(mode, plastic, want):
+    """The fused step takes a plastic run only for pair STDP (K4 is its
+    kernel); describe() names the rule and how its update runs."""
+    p = kpol.resolve(mode, strategy="ell", state_dtype=torch.float32,
+                     device=torch.device("cuda"), plastic=plastic)
+    assert p.describe() == want
+
+
+def test_policy_fused_rejects_other_rules():
+    with pytest.raises(ValueError, match="pair STDP"):
+        kpol.resolve("fused", strategy="ell", state_dtype=torch.float32,
+                     device=torch.device("cuda"), plastic="other_rule")
