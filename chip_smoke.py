@@ -408,6 +408,8 @@ def main() -> None:
                 torch.cuda.synchronize()
                 for name, a, b in zip(("weights", "x_pre", "x_post"), got,
                                       want):
+                    max_err["stdp_update"] = max(
+                        max_err["stdp_update"], float((a - b).abs().max()))
                     if not bitwise(a, b):
                         fail(f"stdp_update {name} differs from the plain "
                              f"version at {k} spikes (full={full}, "

@@ -21,7 +21,9 @@ too.  The fused plastic loop (``pair_stdp`` only, ``:426-482``) is K4 then
 ``stdp_update``'s potentiation and clip per step, and an epilogue that
 delivers the last spikes through the live table and runs a whole STDP
 step; the split plastic loop (``:483-500``) is update, delivery through
-the live table and a whole STDP step.  Each run clips the whole table once,
+the live table and a whole STDP step.  Each STDP update works on the ids
+its step's delivery compacted (K4's, K2's, or the plain version's on the
+CPU), never on a second compaction.  Each run clips the whole table once,
 in its first STDP update, and then only what a step touched.  Two points
 where the reference's fused loop differs from its split loop are kept to
 the split loop here: the first iteration of a run delivers no spikes, so
@@ -146,10 +148,12 @@ class FusedBackend:
         sim, ps = state
 
         def deliver_live(sim, ps, spiked, t):
-            live = strategy.live_tables(net.tables, bound.weights(ps))
-            ring, ovf = strategy.deliver(sim.ring, live, spiked, t, n_exc,
-                                         cfg)
-            return sim._replace(ring=ring, overflow=sim.overflow + ovf)
+            """Deliver through the live table; returns (sim', ids), the
+            delivery's compacted ids being the STDP update's rows."""
+            live = strategy.live_tables(net.tables, ps.weights)
+            ring, ids, ovf = strategy.deliver_ids(sim.ring, live, spiked, t,
+                                                  n_exc, cfg)
+            return sim._replace(ring=ring, overflow=sim.overflow + ovf), ids
 
         if self.fused:
             spk_prev = torch.zeros(n, dtype=torch.bool, device=self.device)
@@ -167,15 +171,15 @@ class FusedBackend:
             if n_steps:
                 # epilogue: deliver the last spikes through the live table
                 # and run their whole STDP step
-                sim = deliver_live(sim, ps, spk_prev, sim.t - 1)
-                ps = bound.step(ps, spk_prev, clip_all=n_steps == 1)
+                sim, ids = deliver_live(sim, ps, spk_prev, sim.t - 1)
+                ps = bound.step(ps, spk_prev, ids, clip_all=n_steps == 1)
         else:
             for i in range(n_steps):
                 sim, spiked = update_phase(sim, net, prop, cfg, c.w_ext, n,
                                            drive)
-                sim = deliver_live(sim, ps, spiked, sim.t)
+                sim, ids = deliver_live(sim, ps, spiked, sim.t)
                 sim = sim._replace(t=sim.t + 1)
-                ps = bound.step(ps, spiked, clip_all=i == 0)
+                ps = bound.step(ps, spiked, ids, clip_all=i == 0)
                 record(sim, spiked, ps)
         return sim, ps
 

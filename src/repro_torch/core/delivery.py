@@ -11,7 +11,11 @@ trailing dump column for padded entries).  The ring is updated in place.
   the port leaves it to PyTorch).
 * ``ell`` -- the same tables, rows padded to ``block_k = 128``; delivered
   by kernel K2 (``kernels/ell_deliver``) when the resolved policy says
-  ``deliver="kernel"``, by ``deliver_event`` otherwise (``reference``).
+  ``deliver="kernel"``, by the plain version of ``event`` otherwise
+  (``reference``).
+
+``deliver_ids`` also returns the step's compacted ids, which the plastic
+path hands to the STDP update instead of compacting the spikes again.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ import torch
 
 from repro_torch.core import kernel_policy as kpol
 from repro_torch.core.params import FULL_MEAN_RATES
-from repro_torch.kernels.ell_deliver import ell_deliver_plain
+from repro_torch.kernels.ell_deliver import ell_deliver, ell_deliver_plain
 
 
 class DeliveryOverflowError(RuntimeError):
@@ -54,16 +58,6 @@ def make_event_tables(targets: np.ndarray, weights: np.ndarray,
         return torch.from_numpy(out).to(device)
     return EventTables(targets=padded(targets, n), weights=padded(weights, 0),
                        dbins=padded(dbins, 1))
-
-
-def deliver_event(ring: torch.Tensor, tables: EventTables,
-                  spiked: torch.Tensor, t: int, n_exc: int,
-                  spike_budget: int):
-    """Event-driven delivery, in place.  Returns ``(ring, n_overflow)``."""
-    ring, _, overflow = ell_deliver_plain(
-        ring, tables.targets, tables.weights, tables.dbins, spiked, t,
-        n_exc, spike_budget)
-    return ring, overflow
 
 
 def auto_spike_budget(c, dt: float, safety: float = 8.0,
@@ -101,16 +95,28 @@ class DeliveryStrategy:
 
     def live_tables(self, tables: Any, weights: torch.Tensor) -> Any:
         """``tables`` with the live plastic ``weights`` (the strategy's own
-        ``[N+1, K]`` layout) swapped in: a re-wrap, never a copy."""
-        raise NotImplementedError(
-            f"delivery strategy {self.name!r} has no live-weight path "
-            f"(live_tables); plasticity requires 'event' or 'ell'")
+        ``[N+1, K]`` layout, kept padded: the reference pads them every
+        step, ``delivery.py:436``) swapped in: a re-wrap, never a copy."""
+        if not self.supports_live_weights:
+            raise NotImplementedError(
+                f"delivery strategy {self.name!r} has no live-weight path "
+                f"(live_tables); plasticity requires 'event' or 'ell'")
+        return tables._replace(weights=weights)
+
+    def deliver_ids(self, ring: torch.Tensor, tables: Any,
+                    spiked: torch.Tensor, t: int, n_exc: int, cfg
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Scatter one step's spikes.  Returns (ring, ids, n_overflow):
+        ``ids`` [budget] int32 are the delivered ids, ascending, then N."""
+        raise NotImplementedError
 
     def deliver(self, ring: torch.Tensor, tables: Any, spiked: torch.Tensor,
                 t: int, n_exc: int, cfg) -> Tuple[torch.Tensor,
                                                   torch.Tensor]:
         """Scatter one step's spikes. Returns (ring, n_overflow)."""
-        raise NotImplementedError
+        ring, _, overflow = self.deliver_ids(ring, tables, spiked, t, n_exc,
+                                             cfg)
+        return ring, overflow
 
 
 REGISTRY: Dict[str, DeliveryStrategy] = {}
@@ -149,13 +155,10 @@ class EventDelivery(DeliveryStrategy):
     def prepare(self, c, cfg, device) -> EventTables:
         return make_event_tables(c.targets, c.weights, c.dbins, device)
 
-    def live_tables(self, tables: EventTables,
-                    weights: torch.Tensor) -> EventTables:
-        return tables._replace(weights=weights)
-
-    def deliver(self, ring, tables, spiked, t, n_exc, cfg):
-        return deliver_event(ring, tables, spiked, t, n_exc,
-                             _require_budget(cfg))
+    def deliver_ids(self, ring, tables, spiked, t, n_exc, cfg):
+        return ell_deliver_plain(ring, tables.targets, tables.weights,
+                                 tables.dbins, spiked, t, n_exc,
+                                 _require_budget(cfg))
 
 
 @register
@@ -166,12 +169,6 @@ class EllDelivery(DeliveryStrategy):
     block_k = 128            # ELL row pad (the reference's lane-aligned K)
     supports_live_weights = True
 
-    def live_tables(self, tables: EventTables,
-                    weights: torch.Tensor) -> EventTables:
-        """The live weights are kept padded to ``K_pad`` already (the
-        reference pads them every step, ``delivery.py:436``)."""
-        return tables._replace(weights=weights)
-
     def k_pad(self, k: int) -> int:
         return max(self.block_k, -(-k // self.block_k) * self.block_k)
 
@@ -180,10 +177,9 @@ class EllDelivery(DeliveryStrategy):
         return make_event_tables(c.targets, c.weights, c.dbins, device,
                                  k_pad=self.k_pad(c.targets.shape[1]))
 
-    def deliver(self, ring, tables, spiked, t, n_exc, cfg):
-        budget = _require_budget(cfg)
+    def deliver_ids(self, ring, tables, spiked, t, n_exc, cfg):
         pol = kpol.policy_of(cfg)
-        if pol is not None and pol.deliver == "kernel":
-            from repro_torch.kernels import ops as kops
-            return kops.ell_deliver(ring, tables, spiked, t, n_exc, budget)
-        return deliver_event(ring, tables, spiked, t, n_exc, budget)
+        k2 = pol is not None and pol.deliver == "kernel"
+        return (ell_deliver if k2 else ell_deliver_plain)(
+            ring, tables.targets, tables.weights, tables.dbins, spiked, t,
+            n_exc, _require_budget(cfg))

@@ -19,10 +19,10 @@ copy at full scale.  ``in_sources`` is not stored: it equals
 ``in_syn_idx // K`` on every entry (the fill ``N * K`` gives ``N``).
 
 The bound object (what ``api.backends.FusedBackend`` consumes) has
-``tables``, ``plastic_mask`` (``[N+1, K]`` bool), ``init() -> state``,
-``step(state, spiked, clip_all) -> state`` (one whole update for a step's
-spike vector; ``clip_all`` marks a run's first step) and ``weights(state)``
-(the live ``[N+1, K]`` table).  The deprecated ``simulate_plastic`` and
+``tables``, ``plastic_mask`` (``[N+1, K]`` bool), ``init() -> state`` and
+``step(state, spiked, ids, clip_all) -> state`` (one whole update for a
+step's spike vector and the ids its delivery compacted; ``clip_all`` marks
+a run's first step).  The deprecated ``simulate_plastic`` and
 ``Simulator(stdp=...)`` are not ported.
 """
 from __future__ import annotations
@@ -33,8 +33,8 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import kernel_policy as kpol
 from repro_torch.kernels import stdp as stdp_kernel
-from repro_torch.kernels.ell_deliver import compact_ids_plain
 from repro_torch.kernels.stdp import StdpCoef
 
 _W_REF_FULL = 87.8     # pA reference weight at full scale (0.15 mV PSP)
@@ -128,15 +128,17 @@ def _update(kernel: bool):
 
 
 def stdp_step(ps: PlasticState, tables: PlasticTables, spiked: torch.Tensor,
-              coef: StdpCoef, spike_budget: int, *, clip_all: bool = True,
+              ids: torch.Tensor, coef: StdpCoef, *, clip_all: bool = True,
               kernel: bool = True) -> PlasticState:
     """One plasticity step given this step's spike vector: depression,
     potentiation, the clip, the traces (``repro/core/plasticity.py:143``).
+    ``ids`` are ``spiked``'s ids as the step's delivery compacted them
+    (the lowest ``budget`` ascending, then the sentinel N), so the update
+    touches the rows the reference's ``nonzero(size=budget)`` picks.
     ``ps.weights`` is updated in place.  ``clip_all=False`` clips only the
     entries this step touched, which equals the reference's whole-table
     clip once the table is clipped.  ``kernel`` picks ``stdp_update``
     (its plain version for CPU tensors), else the plain version."""
-    ids, _ = compact_ids_plain(spiked, spike_budget)
     w, x_pre, x_post = _update(kernel)(
         ps.weights, tables.out_targets, tables.plastic_out,
         tables.in_syn_idx, tables.plastic_in, ids, ps.x_pre, ps.x_post,
@@ -248,12 +250,11 @@ class _BoundPairSTDP:
     """Pair STDP lowered against a connectome (scaled config + tables)."""
 
     def __init__(self, cfg: STDPConfig, tables: PlasticTables,
-                 weights0: torch.Tensor, spike_budget: int, kernel: bool):
+                 weights0: torch.Tensor, kernel: bool):
         self.cfg = cfg
         self.coef = stdp_coefficients(cfg)
         self.tables = tables
         self.plastic_mask = tables.plastic_out
-        self.spike_budget = int(spike_budget)
         self.kernel = kernel
         self._weights0 = weights0
 
@@ -265,13 +266,9 @@ class _BoundPairSTDP:
         return PlasticState(self._weights0.clone(), zeros(), zeros())
 
     def step(self, state: PlasticState, spiked: torch.Tensor,
-             clip_all: bool = True) -> PlasticState:
-        return stdp_step(state, self.tables, spiked, self.coef,
-                         self.spike_budget, clip_all=clip_all,
-                         kernel=self.kernel)
-
-    def weights(self, state: PlasticState) -> torch.Tensor:
-        return state.weights
+             ids: torch.Tensor, clip_all: bool = True) -> PlasticState:
+        return stdp_step(state, self.tables, spiked, ids, self.coef,
+                         clip_all=clip_all, kernel=self.kernel)
 
 
 @register("pair_stdp")
@@ -308,12 +305,12 @@ class PairSTDP(PlasticityRule):
             dt=dt if self.dt is None else self.dt)
 
     def bind(self, c, cfg, tables) -> _BoundPairSTDP:
-        if cfg.spike_budget is None:
+        pol = kpol.policy_of(cfg)
+        if pol is None:
             raise ValueError(
-                "SimConfig.spike_budget is unresolved; call repro_torch."
-                "core.engine.resolve_sim_config first -- the backend does "
-                "this in build()")
-        kernel = bool(getattr(cfg.kernels, "kernels", False))
+                "SimConfig.kernels is unresolved; call repro_torch.core."
+                "engine.resolve_sim_config first -- the backend does this "
+                "in build()")
         return _BoundPairSTDP(self.scaled(c, cfg.dt),
                               build_plastic_tables(tables, c.n_exc),
-                              tables.weights, int(cfg.spike_budget), kernel)
+                              tables.weights, pol.kernels)

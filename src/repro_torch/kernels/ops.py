@@ -26,7 +26,7 @@ def lif_update(state: NeuronState, prop: Propagators, in_ex: torch.Tensor,
 def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t: int,
                 n_exc: int, spike_budget: int):
     """Sparse-ELL delivery (K2), in place.  Returns ``(ring, overflow)``,
-    like ``delivery.deliver_event``."""
+    like ``DeliveryStrategy.deliver``."""
     ring, _, overflow = _ell.ell_deliver(
         ring, tables.targets, tables.weights, tables.dbins, spiked, t,
         n_exc, spike_budget)

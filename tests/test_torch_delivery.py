@@ -95,6 +95,46 @@ def test_deliver_bitwise_vs_jax_deliver_event(nets, strategy, case):
     assert got_ovf == int(want_ovf) == max(COUNTS[case] - BUDGET, 0)
 
 
+@pytest.mark.parametrize("strategy", ["event", "ell"])
+@pytest.mark.parametrize("case", list(COUNTS))
+def test_deliver_ids_are_jax_nonzero(nets, strategy, case):
+    """``deliver_ids`` returns the ids the plastic path hands to the STDP
+    update: JAX's ``nonzero(size=budget, fill_value=N)``, beside the same
+    ring and overflow as ``deliver``."""
+    c, tabs = nets
+    _, pt = tabs[strategy]
+    spiked = _spiked(c.n_total, COUNTS[case], seed=len(case))
+    ring = _ring(c, seed=11, zero=False)
+    cfg = resolve_sim_config(
+        SimConfig(strategy=strategy, spike_budget=BUDGET, kernels="split"),
+        c, torch.device("cpu"))
+    r = torch.from_numpy(ring.copy())
+    out, ids, ovf = tdlv.get_strategy(strategy).deliver_ids(
+        r, pt, torch.from_numpy(spiked), T_STEP, c.n_exc, cfg)
+    (want_ids,) = jnp.nonzero(jnp.asarray(spiked), size=BUDGET,
+                              fill_value=c.n_total)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(want_ids))
+    got_ring, got_ovf = _port_deliver(c, pt, strategy, ring, spiked, BUDGET)
+    np.testing.assert_array_equal(out.numpy(), got_ring)
+    assert int(ovf) == got_ovf
+
+
+def test_live_tables_rewrap_and_gate(nets):
+    """``live_tables`` swaps the weights in without a copy, and a strategy
+    without a live-weight path refuses."""
+    _, tabs = nets
+    _, pt = tabs["ell"]
+    w = pt.weights.clone()
+    for name in ("event", "ell"):
+        live = tdlv.get_strategy(name).live_tables(pt, w)
+        assert live.weights is w and live.targets is pt.targets
+
+    class _Static(tdlv.DeliveryStrategy):
+        name = "static"
+    with pytest.raises(NotImplementedError, match="live-weight"):
+        _Static().live_tables(pt, w)
+
+
 @pytest.mark.parametrize("case", list(COUNTS))
 def test_ell_bitwise_vs_pallas_interpret(nets, case):
     c, tabs = nets

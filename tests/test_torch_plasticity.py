@@ -14,6 +14,7 @@ strategy's ``[N+1, K]`` table and its IN view indexes that table, so the
 comparisons go through ``repro_torch.convert.plastic_to_numpy``.
 """
 import dataclasses
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +48,7 @@ from repro_torch.core.engine import SimConfig
 from repro_torch.core.neuron import NeuronState, Propagators
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ell_deliver import compact_ids_plain
 from repro_torch.kernels.lif_deliver import lif_deliver_plastic
 from repro_torch.kernels.stdp import clip_plain
 
@@ -54,6 +56,14 @@ SCALE, SEED, BUDGET, DT = 0.02, 55, 128, 0.1
 CPU = torch.device("cpu")
 SPIKE_CASES = {"zero": 0, "some": 31, "budget": BUDGET,
                "overflow": BUDGET + 40}
+
+
+def _step(ps, ptab, spiked, coef, budget, **kw):
+    """The port's ``stdp_step`` on ``spiked``, its ids compacted as the
+    step's delivery compacts them."""
+    spiked = torch.from_numpy(spiked)
+    return PL.stdp_step(ps, ptab, spiked, compact_ids_plain(spiked, budget)[0],
+                        coef, **kw)
 
 
 @pytest.fixture(autouse=True)
@@ -174,8 +184,7 @@ def test_stdp_step_bitwise_vs_jax(net, case):
                                       n_spikes=SPIKE_CASES[case])
     want = JP.stdp_step(jps, net["jtables"], jnp.asarray(spiked),
                         net["jstdp"], BUDGET, net["c"].n_exc)
-    got = PL.stdp_step(ps, net["ptab"], torch.from_numpy(spiked),
-                       net["coef"], BUDGET)
+    got = _step(ps, net["ptab"], spiked, net["coef"], BUDGET)
     _assert_plastic_equal(net, got, want)
 
 
@@ -214,12 +223,11 @@ def test_touched_clip_equals_whole_clip(net):
             pre = ps._replace(weights=ps.weights.clone())
             clip_plain(pre.weights, net["ptab"].plastic_out, None, None,
                        None, net["coef"].w_max, True)
-            pre = PL.stdp_step(pre, net["ptab"], torch.from_numpy(spiked),
-                               net["coef"], BUDGET)
+            pre = _step(pre, net["ptab"], spiked, net["coef"], BUDGET)
         jps = JP.stdp_step(jps, net["jtables"], jnp.asarray(spiked),
                            net["jstdp"], BUDGET, c.n_exc)
-        ps = PL.stdp_step(ps, net["ptab"], torch.from_numpy(spiked),
-                          net["coef"], BUDGET, clip_all=step == 0)
+        ps = _step(ps, net["ptab"], spiked, net["coef"], BUDGET,
+                   clip_all=step == 0)
         _assert_plastic_equal(net, ps, jps)
         if step == 0:
             assert not torch.equal(pre.weights, ps.weights)
@@ -242,8 +250,7 @@ def test_static_weights_survive_aggressive_clip(net):
     for step in range(5):
         jps = JP.stdp_step(jps, net["jtables"], jnp.asarray(all_exc), jcfg,
                            512, c.n_exc)
-        ps = PL.stdp_step(ps, net["ptab"], torch.from_numpy(all_exc), coef,
-                          512, clip_all=step == 0)
+        ps = _step(ps, net["ptab"], all_exc, coef, 512, clip_all=step == 0)
     frozen = ~net["ptab"].plastic_out
     assert torch.equal(ps.weights[frozen], w0[frozen])
     assert float(ps.weights[~frozen].max()) <= np.float32(coef.w_max)
@@ -504,6 +511,27 @@ def test_plastic_state_setter_checks_the_pair():
     sim.reset()                         # a fresh init clones the table again
     assert sim.state[1].weights is not ps.weights
     assert torch.equal(sim.state[1].weights, sim.backend.net.tables.weights)
+
+
+@pytest.mark.parametrize("mode", ["fused", "split"])
+def test_stdp_update_reuses_the_delivery_ids(monkeypatch, mode):
+    """The STDP update works on the ids its step's delivery compacted: a
+    plastic run compacts once per delivery (K4's each step, and in the
+    fused loop the epilogue's), never again for the update."""
+    calls = []
+
+    def counted(spiked, budget):
+        calls.append(budget)
+        return compact_ids_plain(spiked, budget)
+    for mod in list(sys.modules.values()):       # every module holding it
+        if mod.__name__.startswith("repro_torch") and getattr(
+                mod, "compact_ids_plain", None) is compact_ids_plain:
+            monkeypatch.setattr(mod, "compact_ids_plain", counted)
+    sim = Simulator(MicrocircuitConfig(scale=SCALE, strategy="ell",
+                                       t_presim=0.0), kernels=mode,
+                    plasticity="pair_stdp", device="cpu")
+    n_steps = sim.run(2.0).n_steps
+    assert len(calls) == n_steps + (mode == "fused")
 
 
 @pytest.mark.parametrize("strategy", ["event", "ell"])
