@@ -2,7 +2,8 @@
 """Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one card.
 
     python3 chip_smoke.py                 # full scale (the default)
-    python3 chip_smoke.py --scale 0.1 --t-sim 100   # a quicker look
+    python3 chip_smoke.py --scale 0.1 --t-sim 100 --scale-dense 0.05
+                                          # a quicker look
 
 Phases, each on its own line; any failed check exits non-zero:
 
@@ -41,7 +42,24 @@ Phases, each on its own line; any failed check exits non-zero:
    profiled steps, as in 5;
 8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
-   back-to-back call time from CUDA events (``call_ms``).
+   back-to-back call time from CUDA events (``call_ms``);
+9. the dense strategy, once the full-scale sessions are freed:
+   (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
+   reference path (two ``torch.matmul`` GEMVs on the source-major table)
+   over 1,000 steps: the rasters equal, or the JAX package's own
+   dense-versus-event bar (``tests/test_delivery.py``: at least 99 % of the
+   per-step population counts equal, each population's sum within 2 %,
+   ``atol`` 3); (c) the dense path at ``--scale-dense`` (default 0.2, the
+   widest whose 43.8 GB table fits the card with room for the checks):
+   ``auto`` must resolve to the split step with K5; warmup, 100 ms presim,
+   a ``--t-sim-dense`` ms run; K1 and K5 once per step, overflow 0, rates
+   in band; the session's build time (the table's, on the card), the
+   table's bytes and the peak allocation; 200 profiled steps, as in 5;
+   (a) K5 on the session's table against its plain version at 0, 1, 5,
+   64 and more spikes than ``spike_budget``, bitwise (one fixed sum order,
+   no atomics), with a float32 and a bfloat16 table; (d) K5's times at
+   the dense path's mean spike count, and one batched ``torch.matmul`` of
+   the spikes against the whole table (TF32 off) as the library call.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -49,6 +67,7 @@ The line before the last is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -199,6 +218,8 @@ def main() -> None:
     ap.add_argument("--scale", type=float, default=1.0)
     ap.add_argument("--t-sim", type=float, default=1000.0)
     ap.add_argument("--t-sim-plastic", type=float, default=300.0)
+    ap.add_argument("--scale-dense", type=float, default=0.2)
+    ap.add_argument("--t-sim-dense", type=float, default=1000.0)
     ap.add_argument("--seed", type=int, default=55)
     args = ap.parse_args()
 
@@ -212,6 +233,7 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.api import Simulator
     from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.core import connectivity as CONN
     from repro_torch.core import plasticity as PL
     from repro_torch.core.connectivity import build_connectome
     from repro_torch.core.delivery import REGISTRY as STRATEGIES
@@ -222,6 +244,7 @@ def main() -> None:
     from repro_torch.kernels import ell_deliver as K2
     from repro_torch.kernels import lif_deliver as K3
     from repro_torch.kernels import lif_update as K1
+    from repro_torch.kernels import spike_deliver as K5
     from repro_torch.kernels import stdp as KS
     from repro_torch.kernels.ell_deliver import compact_ids_plain
 
@@ -285,15 +308,15 @@ def main() -> None:
         build_s=f"{build_conn_s:.1f}", tables_to_device_s=f"{prep_s:.1f}",
         table_bytes=table_bytes)
 
-    def ring0():
-        r = np.zeros((D, 2, N + 1), np.float32)
-        r[:, 0, :N] = rng.uniform(0, 50, (D, N))      # channel signs as by
-        r[:, 1, :N] = -rng.uniform(0, 50, (D, N))     # Dale's law
+    def ring0(d=D, n=N):
+        r = np.zeros((d, 2, n + 1), np.float32)
+        r[:, 0, :n] = rng.uniform(0, 50, (d, n))      # channel signs as by
+        r[:, 1, :n] = -rng.uniform(0, 50, (d, n))     # Dale's law
         return on(r)
 
-    def spiked_with(k):
-        s = np.zeros(N, bool)
-        s[rng.choice(N, size=k, replace=False)] = True
+    def spiked_with(k, n=N):
+        s = np.zeros(n, bool)
+        s[rng.choice(n, size=k, replace=False)] = True
         return on(s)
 
     state_in = (on(rng.uniform(-80, -45, N).astype(np.float32)),
@@ -421,7 +444,7 @@ def main() -> None:
             exact=json.dumps([m for m in names if m not in errs]),
             weights_depressed=n_depressed, max_abs_err=json.dumps(errs))
     del tables, tbl, ring, out_k, out_p, w_k, w_p, w_base, ptab, pmask, got
-    del want
+    del want, stdp_in
     torch.cuda.empty_cache()
 
     # -- 4. the port against its plain reference on the card -----------------
@@ -705,11 +728,156 @@ def main() -> None:
         stdp_update_full_step=json.dumps(k5_full),
         stdp_update_whole_table_clip=json.dumps(k5_clip))
 
+    # -- 9. the dense strategy ------------------------------------------------
+    del sim, rule, tables, tbl, ptables, pmask, w_static, w, w_t, lib_in, c
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("freed", allocated_bytes=torch.cuda.memory_allocated(),
+        reserved_bytes=torch.cuda.memory_reserved())
+
+    # (b) the split path (K5) against the reference path (GEMM) at 0.02
+    small_d = MicrocircuitConfig(scale=0.02, strategy="dense", t_presim=0.0,
+                                 seed=args.seed)
+    runs = {}
+    for mode in ("reference", "split"):
+        s = Simulator(small_d, kernels=mode, probes=("spikes", "pop_counts"),
+                      device=dev)
+        _build.reset_launches()
+        r = s.run(100.0)
+        k5_n = _build.launches["gated_spike_matvec"]
+        want_k5 = r.n_steps if mode == "split" else 0
+        if k5_n != want_k5 or r.overflow != 0:
+            fail(f"dense {mode} path at 0.02: K5 launched {k5_n} times for "
+                 f"{r.n_steps} steps, overflow {r.overflow}")
+        runs[mode] = (r["spikes"], r["pop_counts"],
+                      s.sim_config.kernels.describe())
+        del s
+    (sp_ref, pc_ref, pol_ref), (sp_k5, pc_k5, pol_k5) = (runs["reference"],
+                                                        runs["split"])
+    raster_equal = np.array_equal(sp_k5, sp_ref)
+    counts_equal = float((pc_k5 == pc_ref).mean())
+    sums_ok = bool(np.all(np.abs(pc_k5.sum(0) - pc_ref.sum(0))
+                          <= 3.0 + 0.02 * np.abs(pc_ref.sum(0))))
+    if not (raster_equal or (counts_equal > 0.99 and sums_ok)):
+        fail(f"dense split path (K5) departs from the GEMM path at 0.02: "
+             f"{counts_equal:.4f} of the population counts equal, sums "
+             f"within 2 %: {sums_ok}")
+    say("dense_vs_reference", scale=0.02, steps=sp_k5.shape[0],
+        split=pol_k5, reference=pol_ref, spikes=int(sp_k5.sum()),
+        held="raster_equal" if raster_equal else "jax_dense_bar",
+        raster_equal=raster_equal, pop_counts_equal_share=counts_equal,
+        sums_within_2pct=sums_ok)
+    del runs
+
+    # (c) the dense path at --scale-dense: the table is built on the card
+    CONN.DENSE_MAX_BYTES = int(
+        0.6 * torch.cuda.get_device_properties(dev).total_memory)
+    t0 = time.perf_counter()
+    c_d = build_connectome(scale=args.scale_dense, seed=args.seed)
+    conn_d_s = time.perf_counter() - t0
+    cfg_d = MicrocircuitConfig(scale=args.scale_dense, strategy="dense",
+                               seed=args.seed)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = Simulator(cfg_d, connectome=c_d, device=dev)
+    torch.cuda.synchronize()
+    build_d_s = time.perf_counter() - t0
+    pol = sim.sim_config.kernels
+    W = sim.backend.net.tables.W
+    if not (pol.step == "split" and pol.kernels and pol.deliver == "kernel"
+            and W is not None):
+        fail(f"auto policy of the dense path resolved to {pol.describe()}, "
+             f"not split with K5 on the bin-major table")
+    Nd, Dd = c_d.n_total, c_d.d_max_bins
+    sim.warmup()
+    _build.reset_launches()
+    res_d = sim.run(args.t_sim_dense)
+    dense_launches = dict(_build.launches)
+    steps_d = sim._steps(sim.t_presim) + res_d.n_steps
+    rates_d = res_d.summary()["rates_hz"]
+    ms_step_d = res_d.wall_s / res_d.n_steps * 1e3
+    budget_d = sim.sim_config.spike_budget
+    say("dense_path", policy=pol.describe(), scale=args.scale_dense, n=Nd,
+        d_bins=Dd, synapses=c_d.n_synapses, table_shape=list(W.shape),
+        table_bytes=W.numel() * W.element_size(),
+        connectome_build_s=f"{conn_d_s:.1f}",
+        table_build_s=f"{build_d_s:.3f}", presim_ms=sim.t_presim,
+        run_ms=args.t_sim_dense, steps=res_d.n_steps, wall_s=res_d.wall_s,
+        rtf=res_d.rtf, ms_per_step=ms_step_d, overflow=res_d.overflow,
+        spike_budget=budget_d,
+        spikes_per_step=float(res_d["pop_counts"].sum()) / res_d.n_steps,
+        peak_allocated_bytes=torch.cuda.max_memory_allocated())
+    say("rates_hz_dense", **{p: f"{r:.3f}" for p, r in zip(POPS, rates_d)})
+    say("launches", path="dense", **dense_launches,
+        steps_incl_presim=steps_d)
+    if res_d.overflow != 0:
+        fail(f"overflow {res_d.overflow} on the dense path")
+    if dense_launches["lif_update"] != steps_d \
+            or dense_launches["gated_spike_matvec"] != steps_d:
+        fail(f"dense path launched {dense_launches} for {steps_d} steps")
+    check_rates(rates_d, "dense path")
+    say("dense_path_profile", **profile_window(sim, 20.0, ms_step_d))
+    spikes_d = max(1, round(float(res_d["pop_counts"].sum())
+                            / res_d.n_steps))
+
+    # (a) K5 on the session's table against its plain version, bitwise
+    ring_d = lambda: ring0(Dd, Nd)
+    spiked_d = lambda k: spiked_with(k, Nd)
+    over = budget_d + 172
+    W_bf = W.to(torch.bfloat16)
+    for table, counts in ((W, (0, 1, 5, 64, over)), (W_bf, (5, over))):
+        for k in counts:
+            spk, r0 = spiked_d(k), ring_d()
+            got = K5.dense_deliver(r0.clone(), table, spk, t_step, c_d.n_exc)
+            want = K5.dense_deliver_plain(r0.clone(), table, spk, t_step,
+                                          c_d.n_exc)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            max_err["gated_spike_matvec"] = max(
+                max_err["gated_spike_matvec"], err)
+            if not bitwise(got, want):
+                fail(f"K5 ring differs from the plain version at {k} spikes "
+                     f"({table.dtype}): max |diff| {err}")
+            say("K5", spikes=k, budget=budget_d, table=str(table.dtype),
+                bitwise=True, max_abs_err=err,
+                cells_changed=int((got != r0).sum()))
+    del W_bf, got, want
+    s_k = spiked_d(spikes_d).float()
+    if not bitwise(K5.gated_spike_matvec(s_k, W),
+                   K5.gated_spike_matvec_plain(s_k, W)):
+        fail("K5's gated_spike_matvec differs from its plain version")
+    say("K5_matvec", spikes=spikes_d, shape=list(W.shape), bitwise=True)
+
+    # (d) K5's times at the dense path's mean spike count.  The library
+    # call streams the whole table: one cuBLAS kernel of about 17 ms on an
+    # H100, timed with CUDA events over 4 calls (its launch time is
+    # negligible beside it, and the profiler, after this script's earlier
+    # windows, recorded only 2 of its 4 kernels in one run)
+    spks_d = [spiked_d(spikes_d) for _ in range(64)]
+    ring = ring_d()
+    k5d = timed(lambda i: K5.dense_deliver(ring, W, spks_d[i], t_step,
+                                           c_d.n_exc))
+    k5d_plain = timed(lambda i: K5.dense_deliver_plain(
+        ring, W, spks_d[i], t_step, c_d.n_exc))
+    s_lib = [x.float() for x in spks_d[:4]]
+    lib_ms = call_ms(lambda i: torch.matmul(s_lib[i % 4], W), iters=4,
+                     warm=1)
+    k5d_lib = {"ms": lib_ms, "call_ms": lib_ms, "timing": "events"}
+    # the spiking rows, the ring's read and write, the spike vector, ids
+    k5d_bytes = (spikes_d * Dd * Nd * 4 + 2 * Dd * 2 * Nd * 4 + Nd
+                 + 4 * spikes_d + 4)
+    say("timing_dense", spikes=spikes_d, K5=json.dumps(k5d),
+        K5_plain=json.dumps(k5d_plain),
+        library_batched_matmul_tf32_off=json.dumps(k5d_lib))
+    del sim, W, ring, spks_d, s_lib
+    torch.cuda.empty_cache()
+
     def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err):
         b_ms, b_by = bound(n_bytes, n_ops)
         by_path = {"fused": fused_launches[name],
                    "split": split_launches[name],
-                   "plastic": plastic_launches[name]}
+                   "plastic": plastic_launches[name],
+                   "dense": dense_launches[name]}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,
@@ -739,6 +907,10 @@ def main() -> None:
             "src/repro/core/plasticity.py:206 (XLA, no Pallas kernel)", k5,
             k5_plain, k5_bytes, 2 * cnt["in_plastic"], None,
             max_err["stdp_update"]),
+        row("gated_spike_matvec", "spike_deliver.cu",
+            "src/repro/kernels/spike_deliver.py:51", k5d, k5d_plain,
+            k5d_bytes, spikes_d * Dd * Nd, k5d_lib,
+            max_err["gated_spike_matvec"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -64,6 +64,13 @@ class FusedBackend:
         self.device = torch.device(device)
         kind = None if self.plasticity is None else self.plasticity.kind
         cfg = resolve_sim_config(cfg, c, self.device, plastic=kind)
+        # checked before the tables are built (the dense one is O(N^2))
+        if self.plasticity is not None \
+                and not dlv.get_strategy(cfg.strategy).supports_live_weights:
+            raise ValueError(
+                f"plasticity needs a delivery strategy with a live-weight "
+                f"path (live_tables); {cfg.strategy!r} has none -- use "
+                f"'event' or 'ell'")
         self.c, self.cfg = c, cfg
         neuron = NeuronParams()
         self.prop = Propagators.make(neuron, cfg.dt)
@@ -73,11 +80,6 @@ class FusedBackend:
                                         self.device)
         self.bound = None
         if self.plasticity is not None:
-            if not dlv.get_strategy(cfg.strategy).supports_live_weights:
-                raise ValueError(
-                    f"plasticity needs a delivery strategy with a "
-                    f"live-weight path (live_tables); {cfg.strategy!r} "
-                    f"has none -- use 'event' or 'ell'")
             self.bound = self.plasticity.bind(c, cfg, self.net.tables)
 
     @property

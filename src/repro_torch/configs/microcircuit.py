@@ -17,7 +17,7 @@ class MicrocircuitConfig:
     dt: float = 0.1              # ms
     t_sim: float = 10000.0       # ms, the paper's strong-scaling task (10 s)
     t_presim: float = 100.0      # ms discarded transient
-    strategy: str = "event"      # delivery registry: event | ell
+    strategy: str = "event"      # delivery registry: event | ell | dense
     spike_budget: Optional[int] = None   # None -> rate-derived auto
     strict_delivery: bool = False        # raise on dropped spikes
     seed: int = 55

@@ -8,8 +8,13 @@ neuron a fixed-width row of (target id, weight, delay bin), padded with the
 sentinel target ``N`` (the ring buffer's trailing dump column).
 
 The draw order from ``np.random.default_rng(seed)`` is the reference's, so
-the same seed gives bit-identical tables in both packages.  The dense
-delay-binned layout waits for the dense strategy's slice of the port.
+the same seed gives bit-identical tables in both packages.
+
+The dense strategy's delay-binned table ``W[D, N_pre, N_post]`` has two
+builders: ``dense_delay_binned`` is the reference's numpy ``np.add.at``
+copy, ``dense_table`` builds the same table (or its source-major layout)
+with PyTorch on the session's device, so that the card never waits on a
+44 GB host array.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import params as P
 
@@ -194,3 +200,93 @@ def build_connectome(
         pop_of=pop_of,
         k_scaling=float(k_scaling),
     )
+
+
+def dense_bytes_estimate(c: Connectome, itemsize: int = 4) -> int:
+    """Footprint of the dense ``W[D, N, N]`` before allocating it."""
+    return int(c.d_max_bins) * int(c.n_total) ** 2 * itemsize
+
+
+#: Allocation cap for the dense strategy, read at call time so that it can
+#: be raised here (``repro_torch.core.connectivity.DENSE_MAX_BYTES = ...``).
+#: At full scale the dense table is about 1.1 TB; the guard turns the
+#: inevitable out-of-memory error into an actionable one before anything
+#: is allocated.
+DENSE_MAX_BYTES = 8 * 1024 ** 3
+
+
+def check_dense_bytes(c: Connectome, itemsize: int = 4,
+                      max_bytes: Optional[float] = None) -> None:
+    """Raise, naming the sparse strategies, when ``W[D, N, N]`` would
+    exceed ``max_bytes`` (default: ``DENSE_MAX_BYTES``)."""
+    if max_bytes is None:
+        max_bytes = DENSE_MAX_BYTES
+    D, n = c.d_max_bins, c.n_total
+    est = dense_bytes_estimate(c, itemsize)
+    if est > max_bytes:
+        raise ValueError(
+            f"dense delay-binned tensor W[{D}, {n}, {n}] needs "
+            f"{est / 1e9:.1f} GB (> cap {max_bytes / 1e9:.1f} GB). The "
+            f"dense strategy is O(N^2) per delay bin and cannot reach this "
+            f"network size -- use strategy='ell' (O(N*K) sparse-ELL kernel "
+            f"delivery) or strategy='event', or shrink the network via "
+            f"build_connectome(scale=...). To force the allocation anyway "
+            f"pass max_bytes=... or raise "
+            f"repro_torch.core.connectivity.DENSE_MAX_BYTES.")
+
+
+def dense_delay_binned(c: Connectome, dtype=np.float32,
+                       max_bytes: Optional[float] = None) -> np.ndarray:
+    """``W[D, N_pre, N_post]`` on the host, the reference's numpy build.
+
+    Multapses within one (delay bin, pre, post) cell sum in the ELL
+    table's order -- what ring-buffer accumulation of the single events
+    gives up to rounding.  Guarded by ``check_dense_bytes``.
+    """
+    check_dense_bytes(c, np.dtype(dtype).itemsize, max_bytes)
+    D, n = c.d_max_bins, c.n_total
+    W = np.zeros((D, n, n), dtype=dtype)
+    rows = np.repeat(np.arange(n), c.targets.shape[1])
+    cols = c.targets.reshape(-1)
+    ws = c.weights.reshape(-1)
+    ds = c.dbins.reshape(-1)
+    valid = cols < n
+    np.add.at(W, (ds[valid], rows[valid], cols[valid]), ws[valid])
+    return W
+
+
+def dense_table(c: Connectome, device, source_major: bool = False,
+                max_bytes: Optional[float] = None) -> torch.Tensor:
+    """The dense table, float32, built with PyTorch on ``device``.
+
+    Bin-major ``W[D, N, N]``, bitwise ``dense_delay_binned``'s; or, with
+    ``source_major``, the same cells as ``[N, D * N]`` (``W.transpose(1,
+    0, 2)``, flattened), built in place rather than transposed, so that
+    either layout costs one table.  Guarded by ``check_dense_bytes``
+    before anything is allocated.
+
+    ``np.add.at`` adds a cell's multapses in the order of their ELL
+    columns, and all of them lie in one row (the cell names its source).
+    So the build walks the columns: pass ``j`` adds column ``j`` of every
+    row that has one, one entry per row and hence no two into one cell,
+    and the passes' order is the column order.  Linear offsets are int64:
+    ``D * N * N`` passes 2**31 from scale 0.1 on.
+    """
+    check_dense_bytes(c, 4, max_bytes)
+    D, n = c.d_max_bins, c.n_total
+    W = torch.zeros(D * n * n, dtype=torch.float32, device=device)
+    # rows by out-degree, descending: pass j covers a prefix of them
+    order = np.argsort(-c.out_degree, kind="stable")
+    n_rows = np.searchsorted(-c.out_degree[order],
+                             -np.arange(c.targets.shape[1]), side="left")
+    k_used = int(c.out_degree.max()) if n else 0
+    on = lambda a: torch.from_numpy(
+        np.ascontiguousarray(a[order, :k_used].T)).to(device)
+    tg, ws, ds = on(c.targets), on(c.weights), on(c.dbins)
+    src = torch.from_numpy(order.astype(np.int64)).to(device)
+    for j in range(k_used):
+        m = int(n_rows[j])
+        t, d, p = tg[j, :m].long(), ds[j, :m].long(), src[:m]
+        lin = ((p * D + d) * n + t) if source_major else ((d * n + p) * n + t)
+        W.index_add_(0, lin, ws[j, :m])
+    return W.view(n, D * n) if source_major else W.view(D, n, n)

@@ -1,10 +1,10 @@
 """Spike-delivery strategies: a protocol plus a registry.
 
-The port's counterpart of ``repro.core.delivery``, with ``event`` and
-``ell``; ``dense`` waits for its own slice.  Both strategies use the padded
-ELL out-adjacency with one sentinel source row at index N, and write into
-``ring[D, 2, N+1]`` (channel 0/1 = excitatory/inhibitory arrivals, one
-trailing dump column for padded entries).  The ring is updated in place.
+The port's counterpart of ``repro.core.delivery``, with ``event``, ``ell``
+and ``dense``.  Every strategy writes into ``ring[D, 2, N+1]`` (channel 0/1
+= excitatory/inhibitory arrivals, one trailing dump column for padded
+entries), in place.  ``event`` and ``ell`` use the padded ELL
+out-adjacency with one sentinel source row at index N.
 
 * ``event`` -- the reference's ``deliver_event``: ordered id compaction,
   row gather and one ``index_add_`` (the JAX package leaves it to XLA, so
@@ -13,6 +13,12 @@ trailing dump column for padded entries).  The ring is updated in place.
   by kernel K2 (``kernels/ell_deliver``) when the resolved policy says
   ``deliver="kernel"``, by the plain version of ``event`` otherwise
   (``reference``).
+* ``dense`` -- the delay-binned table ``W[D, N_pre, N_post]``, built on
+  the session's device (``connectivity.dense_table``).  Bin-major and
+  delivered by kernel K5 (``kernels/spike_deliver``) when the policy says
+  ``deliver="kernel"``; source-major ``W_ex``/``W_in`` and delivered by
+  two ``torch.matmul`` GEMVs when it says ``deliver="matmul"``.  No spike
+  budget, so no overflow; no live-weight path.
 
 ``deliver_ids`` also returns the step's compacted ids, which the plastic
 path hands to the STDP update instead of compacting the spikes again.
@@ -26,8 +32,11 @@ import numpy as np
 import torch
 
 from repro_torch.core import kernel_policy as kpol
+from repro_torch.core.connectivity import dense_bytes_estimate, dense_table
 from repro_torch.core.params import FULL_MEAN_RATES
 from repro_torch.kernels.ell_deliver import ell_deliver, ell_deliver_plain
+from repro_torch.kernels.spike_deliver import (dense_deliver,
+                                               dense_deliver_plain)
 
 
 class DeliveryOverflowError(RuntimeError):
@@ -40,6 +49,19 @@ class EventTables(NamedTuple):
     targets: torch.Tensor   # [N+1, K] int32 in [0, N]; N == dump
     weights: torch.Tensor   # [N+1, K] float32
     dbins: torch.Tensor     # [N+1, K] int32 >= 1
+
+
+class DenseTables(NamedTuple):
+    """Signed delay-binned weights, in one of two layouts.
+
+    Bin-major ``W[D, N_pre, N_post]`` feeds kernel K5.  Source-major
+    ``W_ex[n_exc, D*N]`` / ``W_in[N - n_exc, D*N]``, split at the Dale
+    boundary, feeds two GEMVs; here they are the two row blocks of one
+    ``[N, D*N]`` table, not two copies.
+    """
+    W: Optional[torch.Tensor] = None        # [D, N_pre, N_post] bin-major
+    W_ex: Optional[torch.Tensor] = None     # [n_exc, D * N_post]
+    W_in: Optional[torch.Tensor] = None     # [N - n_exc, D * N_post]
 
 
 def make_event_tables(targets: np.ndarray, weights: np.ndarray,
@@ -58,6 +80,39 @@ def make_event_tables(targets: np.ndarray, weights: np.ndarray,
         return torch.from_numpy(out).to(device)
     return EventTables(targets=padded(targets, n), weights=padded(weights, 0),
                        dbins=padded(dbins, 1))
+
+
+def deliver_dense(ring: torch.Tensor, tables: DenseTables,
+                  spiked: torch.Tensor, t: int, n_exc: int,
+                  kernel: bool = False):
+    """Delay-binned dense delivery, ``ring`` updated in place.  Returns
+    ``(ring, overflow)``; the overflow is always 0 (no spike budget).
+
+    Each channel's update is summed from zero (``upd_ex`` over
+    ``s[:n_exc]``, ``upd_in`` over ``s[n_exc:]``), and bin ``d`` lands in
+    slot ``(t + d) % D``.  The bin-major table goes to K5 with ``kernel``
+    (on CPU tensors its plain version, as every wrapper does), else to
+    the plain version; the source-major one to two GEMVs.
+    """
+    zero = torch.zeros((), dtype=torch.int32, device=ring.device)
+    if tables.W is None:
+        if kernel:
+            raise ValueError(
+                "the dense kernel (K5) needs the bin-major W[D, P, N] "
+                "layout, but these DenseTables hold the split GEMM layout "
+                "-- rebuild the tables under a KernelPolicy with "
+                "deliver='kernel' (DenseDelivery.prepare)")
+        D, _, n_cols = ring.shape
+        n = spiked.shape[0]
+        s = spiked.to(tables.W_ex.dtype)
+        upd_ex = torch.matmul(s[:n_exc], tables.W_ex).view(D, n)
+        upd_in = torch.matmul(s[n_exc:], tables.W_in).view(D, n)
+        upd = torch.stack([upd_ex, upd_in], dim=1).to(ring.dtype)
+        ring[:, :, :n] += torch.roll(upd, shifts=t, dims=0)
+        return ring, zero
+    (dense_deliver if kernel else dense_deliver_plain)(
+        ring, tables.W, spiked, t, n_exc)
+    return ring, zero
 
 
 def auto_spike_budget(c, dt: float, safety: float = 8.0,
@@ -183,3 +238,31 @@ class EllDelivery(DeliveryStrategy):
         return (ell_deliver if k2 else ell_deliver_plain)(
             ring, tables.targets, tables.weights, tables.dbins, spiked, t,
             n_exc, _require_budget(cfg))
+
+
+@register
+class DenseDelivery(DeliveryStrategy):
+    """Delay-binned matrix delivery (O(N^2) memory, guarded)."""
+
+    name = "dense"
+
+    def prepare(self, c, cfg, device, dtype=torch.float32) -> DenseTables:
+        """The layout the policy asks for: bin-major for K5, source-major
+        otherwise.  Raises past ``connectivity.DENSE_MAX_BYTES`` before
+        allocating anything."""
+        if self._kernel(cfg):
+            return DenseTables(W=dense_table(c, device).to(dtype))
+        Wt = dense_table(c, device, source_major=True).to(dtype)
+        return DenseTables(W_ex=Wt[:c.n_exc], W_in=Wt[c.n_exc:])
+
+    def memory_bytes(self, c, itemsize: int = 4) -> int:
+        return dense_bytes_estimate(c, itemsize)
+
+    @staticmethod
+    def _kernel(cfg) -> bool:
+        pol = kpol.policy_of(cfg)
+        return pol is not None and pol.deliver == "kernel"
+
+    def deliver(self, ring, tables, spiked, t, n_exc, cfg):
+        return deliver_dense(ring, tables, spiked, t, n_exc,
+                             kernel=self._kernel(cfg))

@@ -32,7 +32,8 @@ from repro_torch.core.neuron import NeuronState, Propagators, lif_step
 @dataclasses.dataclass(frozen=True)
 class SimConfig:
     dt: float = 0.1
-    strategy: str = "event"            # "event" | "ell" (delivery registry)
+    strategy: str = "event"            # "event" | "ell" | "dense"
+                                       # (delivery registry)
     spike_budget: Optional[int] = None # max spikes delivered per step;
                                        # None -> rate-derived auto
     strict_delivery: bool = False      # raise DeliveryOverflowError instead
@@ -78,9 +79,16 @@ class SimState(NamedTuple):
     overflow: torch.Tensor            # 0-d int32, cumulative, on device
 
 
-def prepare_network(c: Connectome, cfg: SimConfig, device) -> Network:
-    """Build the tables of the strategy named by ``cfg.strategy``."""
-    tables = dlv.get_strategy(cfg.strategy).prepare(c, cfg, device)
+def prepare_network(c: Connectome, cfg: SimConfig, device,
+                    dense_dtype=torch.float32) -> Network:
+    """Build the tables of the strategy named by ``cfg.strategy``.
+    ``dense_dtype`` (float32 or bfloat16) is honoured only for the stock
+    dense strategy's table, and passed only when not the default."""
+    strategy = dlv.get_strategy(cfg.strategy)
+    if dense_dtype != torch.float32 and type(strategy) is dlv.DenseDelivery:
+        tables = strategy.prepare(c, cfg, device, dtype=dense_dtype)
+    else:
+        tables = strategy.prepare(c, cfg, device)
     as_t = lambda a: torch.as_tensor(a, device=device)
     return Network(tables=tables, k_ext=as_t(c.k_ext), i_dc=as_t(c.i_dc),
                    pop_of=as_t(c.pop_of), v0_mean=as_t(c.v0_mean),

@@ -9,20 +9,32 @@ Modes
 -----
 ``auto``       on ``cuda``: the fused one-kernel step (K3, or K4 and
                ``stdp_update`` for a ``pair_stdp`` run) for the ``ell``
-               strategy with float32 state, the split kernels (K1 + K2,
-               and ``stdp_update`` for a plastic run) otherwise.  On the
-               CPU: the plain PyTorch versions.
+               strategy with float32 state, the split kernels (K1, plus
+               K2 for ``ell`` or K5 for ``dense``, and ``stdp_update`` for
+               a plastic run) otherwise.  On the CPU: the plain PyTorch
+               versions.
 ``fused``      force the fused step.  Raises unless strategy == "ell",
                float32 state, and no plasticity or ``pair_stdp``.
 ``split``      force the per-phase kernels (``lif_update`` + delivery).
 ``reference``  the plain PyTorch versions on any device (``lif_step`` +
-               ``index_add_`` delivery) -- only when asked for by name.
+               ``index_add_`` delivery, or for ``dense`` two
+               ``torch.matmul`` GEMVs on the source-major table) -- only
+               when asked for by name.
+
+The ``deliver`` field names what scatters the spikes: ``kernel`` (K2/K3
+for ``ell``, K5 on the bin-major table for ``dense``), ``index_add``
+(``event``, and ``ell`` without kernels), or ``matmul`` (``dense``
+without kernels: the GEMM layout, a plain large product that the
+reference too leaves outside any kernel).
 
 The reference's TPU rules are gone: the card has no VMEM cap on the ring
 (the JAX ``auto`` on a TPU falls back to split with XLA delivery at full
 scale, where the 28 MB ring exceeds its VMEM gate), and there is no
-interpret mode.  A wrapper given CPU tensors runs its plain version, so
-``fused`` and ``split`` resolved on the CPU run the plain versions there.
+interpret mode.  The port's rule is "the hand-written kernels on the
+card", so its ``auto`` takes K5 for ``dense`` on ``cuda``, where the
+reference's ``auto`` on a TPU takes the GEMM.  A wrapper given CPU tensors
+runs its plain version, so ``fused`` and ``split`` resolved on the CPU run
+the plain versions there.
 """
 from __future__ import annotations
 
@@ -40,7 +52,8 @@ class KernelPolicy:
     mode: str        # one of MODES, as asked for
     step: str        # "fused" (K3) | "split" (update + deliver phases)
     kernels: bool    # the hand-written kernels, else the plain versions
-    deliver: str     # what scatters spikes: "kernel" (K2/K3) | "index_add"
+    deliver: str     # what scatters spikes: "kernel" (K2/K3, K5) |
+                     # "index_add" | "matmul" (dense GEMM)
     plastic: Optional[str] = None   # the plasticity rule's kind, or None
 
     def describe(self) -> str:
@@ -88,8 +101,12 @@ def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
         raise ValueError(f"kernels='fused': {why}")
     fused = mode == "fused" or (mode == "auto" and on_cuda and eligible)
     use = mode in ("fused", "split") or (mode == "auto" and on_cuda)
-    # only the ell strategy has a delivery kernel; event is index_add_
-    deliver = "kernel" if use and strategy == "ell" else "index_add"
+    # ell and dense have a delivery kernel; event is index_add_, dense
+    # without kernels the GEMM
+    if use and strategy in ("ell", "dense"):
+        deliver = "kernel"
+    else:
+        deliver = "matmul" if strategy == "dense" else "index_add"
     return KernelPolicy(mode=mode, step="fused" if fused else "split",
                         kernels=use, deliver=deliver, plastic=plastic)
 

@@ -9,7 +9,8 @@ rebuilt, never reused stale.  All sources are compiled together, one
 ``nvcc`` process each, started at once.
 
 ``launches`` holds one plain integer per kernel (``KERNELS``; K3 and K4 are
-two instantiations of one template in one library).  A wrapper adds one
+two instantiations of one template in one library, and K5,
+``gated_spike_matvec``, lives in ``spike_deliver``).  A wrapper adds one
 where it launches its kernel, and nowhere else, so a run can show that its
 path went through the kernels (``reset_launches`` before, read after).
 """
@@ -35,10 +36,14 @@ SOURCES = {
     "ell_deliver": "ell_deliver.cu",
     "lif_deliver": "lif_deliver.cu",
     "stdp_update": "stdp_update.cu",
+    "spike_deliver": "spike_deliver.cu",
 }
 #: kernel name -> the library that holds it
-KERNELS = {**{name: name for name in SOURCES},
-           "lif_deliver_plastic": "lif_deliver"}
+KERNELS = {"lif_update": "lif_update", "ell_deliver": "ell_deliver",
+           "lif_deliver": "lif_deliver",
+           "lif_deliver_plastic": "lif_deliver",
+           "stdp_update": "stdp_update",
+           "gated_spike_matvec": "spike_deliver"}
 
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn: no multiply-add
 # may contract into an FMA, or V would differ from the plain version.

@@ -1,5 +1,5 @@
 """Wrappers around the kernels with the reference's signatures
-(``repro/kernels/ops.py:26``, ``:44``, ``:64`` and ``:94``).
+(``repro/kernels/ops.py:26``, ``:37``, ``:44``, ``:64`` and ``:94``).
 
 Each takes the engine's types (``NeuronState``, ``EventTables``) and runs
 its kernel on CUDA tensors or its plain version on CPU tensors.
@@ -12,6 +12,7 @@ from repro_torch.core.neuron import NeuronState, Propagators
 from repro_torch.kernels import ell_deliver as _ell
 from repro_torch.kernels import lif_deliver as _fused
 from repro_torch.kernels import lif_update as _lif
+from repro_torch.kernels import spike_deliver as _dense
 
 
 def lif_update(state: NeuronState, prop: Propagators, in_ex: torch.Tensor,
@@ -21,6 +22,12 @@ def lif_update(state: NeuronState, prop: Propagators, in_ex: torch.Tensor,
         state.V, state.I_ex, state.I_in, state.refrac, in_ex.contiguous(),
         in_in.contiguous(), i_dc.contiguous(), prop=prop)
     return NeuronState(V, I_ex, I_in, refrac), spiked
+
+
+def gated_spike_matvec(s: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
+    """Activity-gated dense matvec (K5): ``s`` [P], ``W`` [D, P, N] ->
+    ``Σ_p s[p]·W[d, p, n]`` [D, N] float32."""
+    return _dense.gated_spike_matvec(s, W)
 
 
 def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t: int,

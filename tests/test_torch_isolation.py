@@ -31,7 +31,8 @@ def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {"chip_smoke.py", "simulator.py", "engine.py", "delivery.py",
             "lif_update.py", "ell_deliver.py", "lif_deliver.py",
-            "convert.py", "plasticity.py", "stdp.py"} <= names
+            "convert.py", "plasticity.py", "stdp.py",
+            "spike_deliver.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
