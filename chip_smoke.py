@@ -59,7 +59,28 @@ Phases, each on its own line; any failed check exits non-zero:
    64 and more spikes than ``spike_budget``, bitwise (one fixed sum order,
    no atomics), with a float32 and a bfloat16 table; (d) K5's times at
    the dense path's mean spike count, and one batched ``torch.matmul`` of
-   the spikes against the whole table (TF32 off) as the library call.
+   the spikes against the whole table (TF32 off) as the library call;
+10. K6 ``flash_attention`` and the LM layers at Qwen3-32B widths
+   (``d_model`` 5120, 64 query and 8 KV heads of 128, ``d_ff`` 25600,
+   qk-norm, rope theta 1e6; the Hugging Face model card Qwen/Qwen3-32B),
+   once the dense session is freed, with random weights from ``--seed``:
+   (a) K6 against its plain version at B = 1, Hq = 64, Hkv = 8, D = 128:
+   causal T = S = 4096, causal T = S = 4000 (ragged) and full T = 4096,
+   S = 1500, each in bfloat16 (within 3e-2) and float32 (within 2e-5),
+   ``tests/test_kernels.py``'s tolerances; (b) one layer in bfloat16, B = 1,
+   T = 4096: ``rms_norm``, ``attention`` (qk-norm, rope, K6), residual,
+   ``rms_norm``, ``mlp``, residual; K6 launched exactly once; the output
+   finite and within 3e-2 of the same layer with ``mha`` on K6's plain
+   version; then the cache path: a masked prefill of the first 4095
+   tokens into a 4096-slot cache and one decode step at index 4095, each
+   within 3e-2 of the prefill's attention rows; (c) one K6 call at
+   T = S = 32768 (the reference's ``prefill_32k`` length, its batch cut
+   from 32 to 1), timed with CUDA events, its last 512 rows against the
+   plain version over all keys (the whole score matrix would take 275 GB);
+   (d) K6's time at (a)'s bfloat16 causal shape (CUDA events over 16
+   calls) beside its bound (the operations at the bf16 tensor-core rate),
+   its plain version's and one ``scaled_dot_product_attention`` call's as
+   the library call.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -77,10 +98,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM memory rate and float32 rate outside the tensor cores (NVIDIA
-#: data sheet, 700 W)
+#: H100 SXM memory rate, float32 rate outside the tensor cores and dense
+#: bfloat16 tensor-core rate (NVIDIA data sheet, 700 W)
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TC_OPS_PER_S = 989e12
 #: float32 products and sums per neuron of one LIF step (lif_neuron in
 #: csrc/common.cuh; its compares and selects are not counted)
 LIF_OPS = 13
@@ -92,6 +114,17 @@ ENTRY_OPS = 3
 FULL_MEAN_RATES = [0.971, 4.746, 8.142, 0.991, 2.868, 5.396, 9.078, 7.523]
 RATE_REL_TOL, RATE_ABS_TOL = 0.5, 1.0      # validate/reference.py:60-78
 RING_RTOL = RING_ATOL = 1e-5
+#: Qwen3-32B's attention and MLP widths (the Hugging Face model card
+#: Qwen/Qwen3-32B: rms_norm_eps 1e-6, rope_theta 1e6)
+QWEN3_32B = dict(name="qwen3-32b", family="dense", n_layers=64, d_model=5120,
+                 n_heads=64, n_kv_heads=8, d_ff=25600, vocab_size=151936,
+                 head_dim=128, qk_norm=True, rope_theta=1e6, norm_eps=1e-6)
+#: phase 10: (T, S, causal) of K6 against its plain version; the layer's
+#: and the timing's T; the long call's T = S and the rows it checks
+ATTN_SHAPES = ((4096, 4096, True), (4000, 4000, True), (4096, 1500, False))
+ATTN_T, ATTN_T_LONG, ATTN_BAND = 4096, 32768, 512
+#: K6 against its plain version, and the layer's bar (tests/test_kernels.py)
+ATTN_TOL = {"torch.float32": 2e-5, "torch.bfloat16": 3e-2}
 POPS = ("L23E", "L4E", "L5E", "L6E", "L23I", "L4I", "L5I", "L6I")
 
 
@@ -204,11 +237,11 @@ def profile_window(sim, t_ms: float, ms_step: float) -> dict:
                 host_ops_ms_per_step=json.dumps(dict(host[:10])))
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over the memory rate and the operations over
-    the float32 rate."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / FP32_OPS_PER_S
+    the rate of their type (float32 by default)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -223,8 +256,11 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=55)
     args = ap.parse_args()
 
+    import unittest.mock
+
     import numpy as np
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         fail("no CUDA card: torch.cuda.is_available() is false")
     if not (SRC / "repro_torch" / "csrc").is_dir():
@@ -232,6 +268,7 @@ def main() -> None:
              f"({SRC / 'repro_torch'} missing)")
     sys.path.insert(0, str(SRC))
     from repro_torch.api import Simulator
+    from repro_torch.configs.base import ModelConfig
     from repro_torch.configs.microcircuit import MicrocircuitConfig
     from repro_torch.core import connectivity as CONN
     from repro_torch.core import plasticity as PL
@@ -242,11 +279,13 @@ def main() -> None:
     from repro_torch.core.params import NeuronParams
     from repro_torch.kernels import _build
     from repro_torch.kernels import ell_deliver as K2
+    from repro_torch.kernels import flash_attention as K6
     from repro_torch.kernels import lif_deliver as K3
     from repro_torch.kernels import lif_update as K1
     from repro_torch.kernels import spike_deliver as K5
     from repro_torch.kernels import stdp as KS
     from repro_torch.kernels.ell_deliver import compact_ids_plain
+    from repro_torch.models import layers as L
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -872,12 +911,166 @@ def main() -> None:
     del sim, W, ring, spks_d, s_lib
     torch.cuda.empty_cache()
 
-    def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err):
-        b_ms, b_by = bound(n_bytes, n_ops)
+    # -- 10. K6 and the LM layers at Qwen3-32B widths -------------------------
+    t_phase = time.perf_counter()
+    qwen = ModelConfig(**QWEN3_32B)
+    hq, hkv, hd = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim_
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def close(got, want, what: str) -> float:
+        """max |got - want|; fails unless ``got`` is finite and within the
+        tolerance of ``want``'s type."""
+        tol = ATTN_TOL[str(want.dtype)]
+        got, want = got.float(), want.float()
+        err = float((got - want).abs().max())
+        if not (bool(torch.isfinite(got).all()) and torch.allclose(
+                got, want, rtol=tol, atol=tol)):
+            fail(f"{what}: max |diff| {err} (tolerance {tol}), or not finite")
+        return err
+
+    # (a) K6 against its plain version at the attention shapes
+    for t_len, s_len, causal in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            qkv = (randn(1, hq, t_len, hd, dtype=dtype),
+                   randn(1, hkv, s_len, hd, dtype=dtype),
+                   randn(1, hkv, s_len, hd, dtype=dtype))
+            got = K6.flash_attention(*qkv, causal=causal)
+            want = K6.flash_attention_plain(*qkv, causal=causal)
+            err = close(got, want, f"K6 at T={t_len}, S={s_len}, "
+                        f"causal={causal}, {dtype}")
+            max_err["flash_attention"] = max(max_err["flash_attention"], err)
+            say("K6", b=1, hq=hq, hkv=hkv, d=hd, t=t_len, s=s_len,
+                causal=causal, dtype=str(dtype), max_abs_err=err,
+                tol=ATTN_TOL[str(dtype)])
+            del qkv, got, want
+    torch.cuda.empty_cache()
+
+    # (b) one attention + SwiGLU layer at Qwen3-32B widths, bf16, T = 4096
+    d_model, t_len = qwen.d_model, ATTN_T
+    p_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    params, _ = L.split_tree({
+        "ln1": L.init_rms(p_gen, d_model, torch.float32),
+        "attn": L.init_attention(p_gen, qwen),
+        "ln2": L.init_rms(p_gen, d_model, torch.float32),
+        "mlp": L.init_mlp(p_gen, d_model, qwen.d_ff, qwen.n_layers)})
+    n_params = sum(w.numel() for part in params.values()
+                   for w in part.values())
+    x = randn(1, t_len, d_model, dtype=qwen.activation_dtype)
+    positions = torch.arange(t_len, device=dev)[None]
+
+    def layer(x):
+        h = L.rms_norm(x, params["ln1"]["scale"], qwen.norm_eps)
+        a, _ = L.attention(params["attn"], h, qwen, positions)
+        x = x + a
+        h = L.rms_norm(x, params["ln2"]["scale"], qwen.norm_eps)
+        return x + L.mlp(params["mlp"], h), a
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    y, a = layer(x)
+    # the cache path: a masked prefill of the first T - 1 tokens into a
+    # T-slot cache, then one decode step at index T - 1
+    h1 = L.rms_norm(x, params["ln1"]["scale"], qwen.norm_eps)
+    cache = {"k": torch.zeros(1, t_len, hkv, hd, dtype=x.dtype, device=dev),
+             "v": torch.zeros(1, t_len, hkv, hd, dtype=x.dtype, device=dev)}
+    a_pre, cache = L.attention(params["attn"], h1[:, :-1], qwen,
+                               positions[:, :-1], cache=cache, cache_index=0)
+    a_dec, _ = L.attention(params["attn"], h1[:, -1:], qwen,
+                           positions[:, -1:], cache=cache,
+                           cache_index=t_len - 1)
+    torch.cuda.synchronize()
+    attention_launches = dict(_build.launches)
+    say("launches", path="attention", **attention_launches)
+    if attention_launches["flash_attention"] != 1 or sum(
+            attention_launches.values()) != 1:
+        fail(f"the Qwen3-32B layer launched {attention_launches}, not K6 "
+             f"exactly once")
+    layer_ms = call_ms(lambda i: layer(x), iters=2, warm=1)
+    with unittest.mock.patch.object(L.ops, "flash_attention",
+                                    K6.flash_attention_plain):
+        y_ref, a_ref = layer(x)
+    err_y = close(y, y_ref, "the Qwen3-32B layer against its plain-K6 twin")
+    err_a = close(a, a_ref, "the layer's attention against the plain K6")
+    err_pre = close(a_pre, a[:, :-1], "the cache's masked prefill")
+    err_dec = close(a_dec, a[:, -1:], "the decode step")
+    say("qwen3_layer", b=1, t=t_len, d_model=d_model, heads=f"{hq}/{hkv}",
+        head_dim=hd, d_ff=qwen.d_ff, params=n_params, dtype=str(x.dtype),
+        layer_ms=layer_ms, out_max_abs_err=err_y, attn_max_abs_err=err_a,
+        masked_prefill_max_abs_err=err_pre, decode_max_abs_err=err_dec,
+        out_abs_max=float(y.float().abs().max()),
+        tol=ATTN_TOL[str(x.dtype)])
+    del params, x, y, a, y_ref, a_ref, h1, cache, a_pre, a_dec
+    torch.cuda.empty_cache()
+
+    # (c) one K6 call at T = S = 32768; its last 512 rows against the plain
+    # version over all keys
+    t32, band = ATTN_T_LONG, ATTN_BAND
+    qkv = (randn(1, hq, t32, hd), randn(1, hkv, t32, hd),
+           randn(1, hkv, t32, hd))
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out32 = K6.flash_attention(*qkv, causal=True)
+    stop.record()
+    stop.synchronize()
+    ms_32k = start.elapsed_time(stop)
+    want = K6.flash_attention_plain(qkv[0][:, :, -band:], *qkv[1:],
+                                    causal=True, q_offset=t32 - band)
+    err32 = close(out32[:, :, -band:], want, "K6 at T = S = 32768")
+    if not bool(torch.isfinite(out32).all()):
+        fail("K6 at T = S = 32768 is not finite")
+    max_err["flash_attention"] = max(max_err["flash_attention"], err32)
+    say("K6_32k", t=t32, s=t32, causal=True, dtype="torch.bfloat16",
+        ms=ms_32k, rows_checked=band, max_abs_err=err32,
+        tflops=4 * hq * hd * t32 * (t32 + 1) / 2 / ms_32k / 1e9)
+    del qkv, out32, want
+    torch.cuda.empty_cache()
+
+    # (d) K6's times at (a)'s bf16 causal shape; the library call is one
+    # scaled_dot_product_attention (the port never calls it)
+    t_len = ATTN_T
+    qkv = (randn(1, hq, t_len, hd), randn(1, hkv, t_len, hd),
+           randn(1, hkv, t_len, hd))
+    k6 = timed(lambda i: K6.flash_attention(*qkv, causal=True), iters=16)
+    k6_plain = timed(lambda i: K6.flash_attention_plain(*qkv, causal=True),
+                     iters=4)
+    # Both run for milliseconds a call, so their back-to-back event time is
+    # their device time.  The profiler's is kept beside it: on an H100 80GB
+    # HBM3 it recorded 14 or 15 of K6's 16 calls (its figure exactly that
+    # share short of the event time), so the event time is the one that
+    # counts.
+    k6, k6_plain = ({**t, "ms": t["call_ms"], "profiler_ms": t["ms"],
+                     "timing": "events"} for t in (k6, k6_plain))
+    sdpa = lambda i: F.scaled_dot_product_attention(*qkv, is_causal=True,
+                                                    enable_gqa=True)
+    sdpa_ms = call_ms(sdpa, iters=16)
+    k6_lib = {"ms": sdpa_ms, "call_ms": sdpa_ms, "timing": "events"}
+    sdpa_err = float((sdpa(0).float()
+                      - K6.flash_attention(*qkv).float()).abs().max())
+    # q, k, v read once and the output written once; the two products over
+    # the live (causal) query-key pairs
+    k6_bytes = 2 * (2 * hq * t_len * hd + 2 * hkv * t_len * hd)
+    k6_ops = 4 * hq * hd * t_len * (t_len + 1) / 2
+    say("timing_attention", shape=f"1x{hq}x{t_len}x{hd}/{hkv}",
+        K6=json.dumps(k6), K6_plain=json.dumps(k6_plain),
+        library_sdpa=json.dumps(k6_lib), sdpa_vs_K6_max_abs_diff=sdpa_err,
+        K6_tflops=k6_ops / k6["ms"] / 1e9,
+        phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    del qkv
+    torch.cuda.empty_cache()
+
+    def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err,
+            ops_per_s=FP32_OPS_PER_S):
+        b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
         by_path = {"fused": fused_launches[name],
                    "split": split_launches[name],
                    "plastic": plastic_launches[name],
-                   "dense": dense_launches[name]}
+                   "dense": dense_launches[name],
+                   "attention": attention_launches[name]}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,
@@ -911,6 +1104,10 @@ def main() -> None:
             "src/repro/kernels/spike_deliver.py:51", k5d, k5d_plain,
             k5d_bytes, spikes_d * Dd * Nd, k5d_lib,
             max_err["gated_spike_matvec"]),
+        row("flash_attention", "flash_attention.cu",
+            "src/repro/kernels/flash_attention.py:70", k6, k6_plain,
+            k6_bytes, k6_ops, k6_lib, max_err["flash_attention"],
+            ops_per_s=BF16_TC_OPS_PER_S) | {"ms_32k": ms_32k},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

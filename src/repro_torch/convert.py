@@ -10,6 +10,11 @@ sentinel row included), ``k_ext``, ``i_dc``, ``pop_of``, ``V``, ``I_ex``,
 ``I_in``, ``refrac``, ``ring`` (``[D, 2, N+1]``), ``t`` and ``overflow``.
 The JAX PRNG key has no counterpart: the port's state gets ``generator``.
 
+The LM layers' weights (``layer_params_to_torch`` /
+``layer_params_to_numpy``) are a nested dict of arrays, the value tree
+that ``repro.models.layers.split_tree`` gives (as numpy), carried into
+the port's dicts of tensors and back with the same keys.
+
 The plastic side (``plastic_to_torch`` / ``plastic_to_numpy``) carries the
 JAX package's ``PlasticState`` and ``PlasticTables`` under ``PLASTIC_KEYS``
 (``weights`` flat, ``(N+1) * K_out + 1`` long: the ``[N+1, K_out]`` table
@@ -20,7 +25,7 @@ with stride ``K``; and back.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,3 +143,32 @@ def plastic_to_numpy(tables: PlasticTables, state: PlasticState,
         "plastic_out": host(tables.plastic_out)[:, :k_out],
         "plastic_in": host(tables.plastic_in),
     }
+
+
+def layer_params_to_torch(tree: Any, device,
+                          dtype: Optional[torch.dtype] = None) -> Any:
+    """A nested dict of numpy arrays -> the same dict of tensors on
+    ``device`` (copies), in ``dtype`` if given, else in each array's own
+    type.  A bfloat16 array (``ml_dtypes``, as JAX hands them out) goes
+    through float32, which holds it exactly."""
+    if isinstance(tree, dict):
+        return {k: layer_params_to_torch(v, device, dtype)
+                for k, v in tree.items()}
+    a = np.asarray(tree)
+    bf16 = a.dtype.name == "bfloat16"
+    t = torch.from_numpy(np.array(a, np.float32 if bf16 else a.dtype,
+                                  copy=True))
+    if bf16:
+        t = t.to(torch.bfloat16)
+    return t.to(device=device, dtype=dtype or t.dtype)
+
+
+def layer_params_to_numpy(tree: Any) -> Any:
+    """The port's dict of tensors -> the same dict of numpy arrays; a
+    bfloat16 tensor becomes float32 (numpy has no bfloat16), exactly."""
+    if isinstance(tree, dict):
+        return {k: layer_params_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy()

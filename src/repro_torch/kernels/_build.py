@@ -9,10 +9,11 @@ rebuilt, never reused stale.  All sources are compiled together, one
 ``nvcc`` process each, started at once.
 
 ``launches`` holds one plain integer per kernel (``KERNELS``; K3 and K4 are
-two instantiations of one template in one library, and K5,
-``gated_spike_matvec``, lives in ``spike_deliver``).  A wrapper adds one
-where it launches its kernel, and nowhere else, so a run can show that its
-path went through the kernels (``reset_launches`` before, read after).
+two instantiations of one template in one library, K5,
+``gated_spike_matvec``, lives in ``spike_deliver``, and K6 is
+``flash_attention``).  A wrapper adds one where it launches its kernel,
+and nowhere else, so a run can show that its path went through the
+kernels (``reset_launches`` before, read after).
 """
 from __future__ import annotations
 
@@ -37,13 +38,15 @@ SOURCES = {
     "lif_deliver": "lif_deliver.cu",
     "stdp_update": "stdp_update.cu",
     "spike_deliver": "spike_deliver.cu",
+    "flash_attention": "flash_attention.cu",
 }
 #: kernel name -> the library that holds it
 KERNELS = {"lif_update": "lif_update", "ell_deliver": "ell_deliver",
            "lif_deliver": "lif_deliver",
            "lif_deliver_plastic": "lif_deliver",
            "stdp_update": "stdp_update",
-           "gated_spike_matvec": "spike_deliver"}
+           "gated_spike_matvec": "spike_deliver",
+           "flash_attention": "flash_attention"}
 
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn: no multiply-add
 # may contract into an FMA, or V would differ from the plain version.

@@ -1,5 +1,6 @@
 """Wrappers around the kernels with the reference's signatures
-(``repro/kernels/ops.py:26``, ``:37``, ``:44``, ``:64`` and ``:94``).
+(``repro/kernels/ops.py:26``, ``:37``, ``:44``, ``:64``, ``:94`` and
+``:134``).
 
 Each takes the engine's types (``NeuronState``, ``EventTables``) and runs
 its kernel on CUDA tensors or its plain version on CPU tensors.
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.core.neuron import NeuronState, Propagators
 from repro_torch.kernels import ell_deliver as _ell
+from repro_torch.kernels import flash_attention as _attn
 from repro_torch.kernels import lif_deliver as _fused
 from repro_torch.kernels import lif_update as _lif
 from repro_torch.kernels import spike_deliver as _dense
@@ -76,3 +78,11 @@ def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t: int,
     return (NeuronState(V, I_ex, I_in, refrac), ring, spiked,
             ps._replace(weights=w, x_pre=x_pre, x_post=x_post), ids,
             overflow)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale=None) -> torch.Tensor:
+    """Blocked GQA attention (K6): ``q`` [B, Hq, T, D], ``k``/``v``
+    [B, Hkv, S, D] -> [B, Hq, T, D].  The causal mask is top-left aligned,
+    as in the TPU kernel (not ``ref.mha_ref``'s bottom-right one)."""
+    return _attn.flash_attention(q, k, v, causal=causal, scale=scale)
