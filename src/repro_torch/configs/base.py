@@ -2,12 +2,13 @@
 (``repro_torch.models.layers``) read.
 
 The port's copy of ``repro.configs.base.ModelConfig`` for those layers:
-the architecture's widths and the fields and properties the layers read
+the widths they are built at and the fields and properties they read
 (``head_dim_``, ``use_rope``, ``qk_norm``, ``norm_eps``, ``rope_theta``,
-``dtype``, ``param_dtype``), with the same names and defaults.  The dtypes
-stay strings, as in the reference; ``activation_dtype`` gives ``dtype`` as
-a torch dtype.  The reference's MoE, hybrid, encoder and training fields,
-and its registry of architectures, have no counterpart here.
+``dtype``), with the reference's names and defaults.  ``dtype`` stays a
+string, as in the reference; ``activation_dtype`` gives it as a torch
+dtype.  The reference's family, vocabulary, parameter dtype, MoE, hybrid,
+encoder and training fields, and its registry of architectures, serve
+models the port does not have.
 """
 from __future__ import annotations
 
@@ -20,19 +21,16 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                   # dense | moe | hybrid | ssm | encdec | vlm
     n_layers: int
     d_model: int
     n_heads: int
     n_kv_heads: int
     d_ff: int
-    vocab_size: int
     head_dim: Optional[int] = None
     qk_norm: bool = False
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    param_dtype: str = "float32"
 
     @property
     def head_dim_(self) -> int:
@@ -44,4 +42,7 @@ class ModelConfig:
 
     @property
     def use_rope(self) -> bool:
-        return self.family != "encdec"   # whisper: learned positions
+        """Rotary positions in self-attention.  Always: the reference
+        leaves them out only for its encoder-decoder family (learned
+        positions), which the port has no model of."""
+        return True

@@ -7,9 +7,11 @@
 //   s[c]   = (q[r] . k[c]) * scale           for the live keys c
 //   out[r] = sum_c softmax(s)[c] * v[c]      (0 where no key is live)
 //
-// A key c is live when c < S and, if causal, c <= r: the causal mask is
-// top-left aligned (query 0 sees key 0), as in the TPU kernel and in
-// repro/models/layers.py:_mha_block with q_offset 0.  Inputs are float32
+// A key c is live when c < S and, if causal, c <= q_offset + r: with
+// q_offset 0 the causal mask is top-left aligned (query 0 sees key 0), as
+// in the TPU kernel and in repro/models/layers.py:_mha_block with q_offset
+// 0; a prefill into a KV cache passes the cache's index as q_offset and
+// the cache's filled prefix as K and V.  Inputs are float32
 // or bfloat16; everything inside is float32 and the output has q's type.
 //
 // The TPU kernel runs its kv-block grid axis in order on one core and
@@ -116,7 +118,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
     Strides sv, Strides so, int hq, int group, int t_len, int s_len,
-    float scale, int causal) {
+    float scale, int causal, int q_offset) {
   static_assert(D % 64 == 0 || D == 32, "D must be 32 or a multiple of 64");
   constexpr int kVec = D >= 64 ? 4 : 2;          // P.V columns per load
   constexpr int kNv = D / (16 * kVec);           // loads per key
@@ -144,7 +146,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     for (int c = 0; c < kCols; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(s_len, q0 + kBq) : s_len;
+  const int k_end = causal ? min(s_len, q_offset + q0 + kBq) : s_len;
   for (int k0 = 0; k0 < k_end; k0 += kBk) {
     __syncthreads();  // the last tile's P.V is done with KV and Pt
     stage_transposed<D>(kb, sk.l, k0, s_len, KV);
@@ -173,7 +175,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     // online softmax; a row's 64 keys lie in the 16 lanes of its tx group
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
+      const int row = q_offset + q0 + ty * 4 + i;
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -256,7 +258,7 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
 template <int D, typename T>
 int launch(const void* q, const void* k, const void* v, void* o,
            Strides sq, Strides sk, Strides sv, Strides so, int b, int hq,
-           int hkv, int t, int s, float scale, int causal,
+           int hkv, int t, int s, float scale, int causal, int q_offset,
            cudaStream_t stream) {
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   // above 48 KB a block's shared memory must be asked for (per device)
@@ -267,25 +269,25 @@ int launch(const void* q, const void* k, const void* v, void* o,
   flash_kernel<D, T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, hq,
-      hq / hkv, t, s, scale, causal);
+      hq / hkv, t, s, scale, causal, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              Strides sq, Strides sk, Strides sv, Strides so, int b, int hq,
-             int hkv, int t, int s, float scale, int causal,
+             int hkv, int t, int s, float scale, int causal, int q_offset,
              cudaStream_t stream) {
   switch (d) {
     case 32:
       return launch<32, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
-                           scale, causal, stream);
+                           scale, causal, q_offset, stream);
     case 64:
       return launch<64, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
-                           scale, causal, stream);
+                           scale, causal, q_offset, stream);
     case 128:
       return launch<128, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
-                            scale, causal, stream);
+                            scale, causal, q_offset, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -297,19 +299,20 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 // its data pointer and its batch, head and row strides in elements (the
 // last dim contiguous; strides multiples of 4 and pointers 16-byte
 // aligned, which the wrapper checks); all float32 (bf16 == 0) or all
-// bfloat16; d in {32, 64, 128}; hq % hkv == 0; t >= 1.
+// bfloat16; d in {32, 64, 128}; hq % hkv == 0; t >= 1; q_offset >= 0.
 EXPORT int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, long long sqb,
     long long sqh, long long sql, long long skb, long long skh,
     long long skl, long long svb, long long svh, long long svl,
     long long sob, long long soh, long long sol, int b, int hq, int hkv,
-    int t, int s, int d, int bf16, float scale, int causal, void* stream) {
+    int t, int s, int d, int bf16, float scale, int causal, int q_offset,
+    void* stream) {
   const Strides sq{sqb, sqh, sql}, sk{skb, skh, skl}, sv{svb, svh, svl},
       so{sob, soh, sol};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bf16)
     return launch_d<__nv_bfloat16>(d, q, k, v, o, sq, sk, sv, so, b, hq, hkv,
-                                   t, s, scale, causal, st);
+                                   t, s, scale, causal, q_offset, st);
   return launch_d<float>(d, q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
-                         scale, causal, st);
+                         scale, causal, q_offset, st);
 }

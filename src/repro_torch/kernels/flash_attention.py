@@ -12,7 +12,10 @@ The causal mask is the TPU kernel's, top-left aligned: query ``r`` sees
 keys ``c <= r`` (``repro/kernels/flash_attention.py:44-48``, and
 ``repro/models/layers.py:_mha_block`` with ``q_offset=0``).  The JAX
 package's oracle ``ref.mha_ref`` aligns it bottom-right instead
-(``tril(k=S-T)``); the two agree only where ``T == S``.  A row with no
+(``tril(k=S-T)``); the two agree only where ``T == S``.  ``q_offset``
+(0 in the TPU kernel) is the global index of query 0: query ``r`` then
+sees keys ``c <= q_offset + r``, as ``_mha_block``'s does; a prefill into
+a KV cache passes the cache's index and its filled prefix.  A row with no
 live key gives 0, as the TPU kernel's ``l == 0`` guard does.
 
 The kernel takes any batch, head and row strides as long as the last dim
@@ -52,9 +55,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           scale: Optional[float] = None,
                           q_offset: int = 0) -> torch.Tensor:
-    """One-shot float32 softmax with the kernel's mask.  ``q_offset`` is
-    the global index of query 0 (the kernel's is 0): it lets a caller check
-    a band of rows without the whole ``[T, S]`` score matrix."""
+    """One-shot float32 softmax with the kernel's mask (``q_offset`` as
+    the kernel's, but any integer: a band of rows can be checked without
+    the whole ``[T, S]`` score matrix)."""
     _check(q, k, v)
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -80,7 +83,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.flash_attention_launch.restype = ctypes.c_int
         lib.flash_attention_launch.argtypes = (
-            [_P] * 4 + [_L] * 12 + [_I] * 7 + [_F, _I, _P])
+            [_P] * 4 + [_L] * 12 + [_I] * 7 + [_F, _I, _I, _P])
         lib._typed = True
     return lib
 
@@ -104,12 +107,17 @@ def _check_layout(*tensors: torch.Tensor) -> None:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
     """``q`` [B, Hq, T, D], ``k``/``v`` [B, Hkv, S, D] -> [B, Hq, T, D] in
-    q's type and layout."""
+    q's type and layout.  ``q_offset`` >= 0 is query 0's index in the
+    causal mask."""
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset} < 0")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, scale=scale)
+        return flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset)
     _check(q, k, v)
     b, hq, t, d = q.shape
     hkv, s = k.shape[1], k.shape[2]
@@ -132,7 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
         *(_L(st) for st in strides), _I(b), _I(hq), _I(hkv), _I(t), _I(s),
         _I(d), _I(1 if q.dtype == torch.bfloat16 else 0), _F(scale),
-        _I(1 if causal else 0), _build.stream_of(q))
+        _I(1 if causal else 0), _I(q_offset), _build.stream_of(q))
     _build.launches["flash_attention"] += 1
     _build.check(lib, code, "flash_attention")
     return out

@@ -81,8 +81,11 @@ def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t: int,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale=None) -> torch.Tensor:
+                    causal: bool = True, scale=None,
+                    q_offset: int = 0) -> torch.Tensor:
     """Blocked GQA attention (K6): ``q`` [B, Hq, T, D], ``k``/``v``
     [B, Hkv, S, D] -> [B, Hq, T, D].  The causal mask is top-left aligned,
-    as in the TPU kernel (not ``ref.mha_ref``'s bottom-right one)."""
-    return _attn.flash_attention(q, k, v, causal=causal, scale=scale)
+    as in the TPU kernel (not ``ref.mha_ref``'s bottom-right one), shifted
+    by ``q_offset`` (query 0's position; 0 in the TPU kernel)."""
+    return _attn.flash_attention(q, k, v, causal=causal, scale=scale,
+                                 q_offset=q_offset)

@@ -16,15 +16,18 @@ the identity (the reference's are too without a mesh,
 
 Attention routes by case (``mha``):
 
-* prefill and cross-attention (``T > 1``, no ``length_mask``, query 0 at
-  position 0) go through K6 (``kernels.ops.flash_attention``; its plain
-  version on CPU tensors), with ``[B, T, H, D]`` passed as transposed
-  views.  The reference's ``mha`` scans query chunks of ``MHA_Q_CHUNK``
-  (512) there, as the XLA stand-in for the same blocking; K6 needs none.
-* decode (``T == 1``) and the cache's masked prefill keep the reference's
-  tensor math (no query chunking), with its rounding point: the
-  probabilities are cast to ``v``'s type before the product.  They are
-  not K6's function (a length mask, a query offset).
+* every ``T > 1`` goes through K6 (``kernels.ops.flash_attention``; its
+  plain version on CPU tensors), with ``[B, T, H, D]`` passed as
+  transposed views: prefill, cross-attention, and a prefill into a KV
+  cache, which hands K6 the cache's filled prefix and its index as
+  ``q_offset`` (the reference's length mask adds nothing to the causal
+  mask there: every key a query sees lies below ``cache_index + T``).
+  The reference's ``mha`` scans query chunks of ``MHA_Q_CHUNK`` (512)
+  instead, as the XLA stand-in for the same blocking; K6 needs none, and
+  its memory grows with ``T``, not ``T**2``.
+* a decode step (``T == 1``) keeps the reference's grouped einsum with
+  its length mask and its rounding point: the probabilities are cast to
+  ``v``'s type before the product.
 """
 from __future__ import annotations
 
@@ -165,30 +168,12 @@ def _qkv(p, x, x_kv, cfg, positions, cross: bool):
     return q, k, v
 
 
-def _mha_block(q, k, v, *, causal, length_mask, q_offset, scale):
-    """Queries vs full K/V with the reference's masks and rounding.
-    q: [B,L,H,hd]; k,v: [B,S,H,hd]."""
-    t, s = q.shape[1], k.shape[1]
-    logits = torch.einsum("bthd,bshd->bhts", q, k).to(torch.float32) * scale
-    logits = constrain(logits, ("batch", "heads", None, "kv_seq"))
-    if causal:
-        rows = q_offset + torch.arange(t, device=q.device)[:, None]
-        cols = torch.arange(s, device=q.device)[None, :]
-        logits = logits.masked_fill(~(cols <= rows)[None, None],
-                                    float("-inf"))
-    if length_mask is not None:
-        logits = logits.masked_fill(~length_mask[:, None, None, :],
-                                    float("-inf"))
-    probs = constrain(torch.softmax(logits, dim=-1),
-                      ("batch", "heads", None, "kv_seq"))
-    return torch.einsum("bhts,bshd->bthd", probs.to(v.dtype), v)
-
-
 def mha(q, k, v, *, causal: bool, length_mask: Optional[torch.Tensor] = None,
         q_offset=0):
     """q: [B,T,H,hd]; k,v: [B,S,KV,hd]. f32 softmax. Returns [B,T,H,hd].
 
-    ``length_mask``: [B, S] bool (valid kv positions), for decode caches.
+    ``length_mask``: [B, S] bool (valid kv positions), for a decode step
+    (``T == 1``) against a cache.
     ``q_offset``: global position of query 0, for causal masking vs a cache.
     """
     b, t, h, hd = q.shape
@@ -209,18 +194,15 @@ def mha(q, k, v, *, causal: bool, length_mask: Optional[torch.Tensor] = None,
         out = torch.einsum("bkgts,bskd->btkgd", probs.to(v.dtype), v)
         return out.reshape(b, 1, h, hd)
 
-    if length_mask is None and isinstance(q_offset, int) and q_offset == 0:
-        # K6: prefill and cross-attention; heads to dim 1 as views
-        out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), causal=causal,
-                                  scale=scale)
-        return out.transpose(1, 2)
-
-    if kvh != h:
-        k = torch.repeat_interleave(k, h // kvh, dim=2)
-        v = torch.repeat_interleave(v, h // kvh, dim=2)
-    return _mha_block(q, k, v, causal=causal, length_mask=length_mask,
-                      q_offset=q_offset, scale=scale)
+    if length_mask is not None:
+        raise ValueError("mha: a length mask is taken by a decode step "
+                         "(T == 1) only; a prefill into a cache passes the "
+                         "cache's filled prefix and q_offset")
+    # K6; heads to dim 1 as views
+    out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal, scale=scale,
+                              q_offset=q_offset)
+    return out.transpose(1, 2)
 
 
 def _update_slice(buf: torch.Tensor, new: torch.Tensor, index) -> torch.Tensor:
@@ -254,12 +236,17 @@ def attention(p, x, cfg, positions, *, causal=True, x_kv=None,
     else:
         kc = _update_slice(cache["k"], k.to(cache["k"].dtype), cache_index)
         vc = _update_slice(cache["v"], v.to(cache["v"].dtype), cache_index)
-        s = kc.shape[1]
-        valid = torch.arange(s, device=x.device)[None, :] \
-            < (cache_index + q.shape[1])
-        valid = valid.expand(x.shape[0], s)
-        out = mha(q, kc.to(v.dtype), vc.to(v.dtype), causal=True,
-                  length_mask=valid, q_offset=cache_index)
+        s, t = kc.shape[1], q.shape[1]
+        if t == 1:
+            valid = torch.arange(s, device=x.device)[None, :] \
+                < (cache_index + 1)
+            out = mha(q, kc.to(v.dtype), vc.to(v.dtype), causal=True,
+                      length_mask=valid.expand(x.shape[0], s),
+                      q_offset=cache_index)
+        else:
+            end = min(int(cache_index) + t, s)       # the filled prefix
+            out = mha(q, kc[:, :end].to(v.dtype), vc[:, :end].to(v.dtype),
+                      causal=True, q_offset=cache_index)
         new_cache = {"k": kc, "v": vc}
     wo = gathered(p["wo"], ("heads", "head_dim", "embed"), x.dtype)
     return torch.einsum("bthk,hkd->btd", out, wo), new_cache
@@ -285,7 +272,7 @@ def cross_attention_cached(p, x, cfg, ckv):
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, d, f, n_layers, act="swiglu"):
+def init_mlp(gen, d, f, n_layers):
     return {
         "w_gate": param(gen, (d, f), ("embed", "mlp")),
         "w_up": param(gen, (d, f), ("embed", "mlp")),

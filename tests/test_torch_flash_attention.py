@@ -14,7 +14,9 @@ the CUDA kernel is held to on the card (``chip_smoke.py``).
   the layers and departs from ``mha_ref``, which gives NaN where a row
   has no live key.
 * The plain version's ``q_offset`` (a band of rows, as ``chip_smoke.py``
-  checks the 32k call) and its rows with no live key (zeros).
+  checks the 32k call) and its rows with no live key (zeros); the
+  wrapper's ``q_offset`` on a cache's filled prefix against the JAX
+  layers' ``mha`` over the whole cache with its length mask.
 * The guards: on a tensor that is not on the CPU the wrapper checks the
   head dim and the dtypes and then launches the kernel or raises; here a
   ``meta`` tensor stands for one on the card, and nothing falls back to
@@ -107,6 +109,22 @@ def test_plain_q_offset_is_a_band_of_rows(dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_q_offset_on_cache_prefix_matches_layers_mha(dtype):
+    """8 queries at positions 20..27 of a 48-slot cache: K6 over the first
+    28 slots with q_offset 20 is the JAX ``mha`` over all 48 with the
+    length mask."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_inputs(2, 4, 2, 8, 48, 32, seed=6),
+                                       dtype)
+    valid = jnp.broadcast_to(jnp.arange(48)[None] < 28, (2, 48))
+    want = jax_mha(jq.swapaxes(1, 2), jk.swapaxes(1, 2), jv.swapaxes(1, 2),
+                   causal=True, length_mask=valid, q_offset=20)
+    got = kops.flash_attention(tq, tk[:, :, :28], tv[:, :, :28],
+                               causal=True, q_offset=20)
+    np.testing.assert_allclose(_np(got), _np(want).swapaxes(1, 2),
+                               rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_plain_rows_with_no_live_key_are_zero():
     _, (tq, tk, tv) = _both(_inputs(1, 2, 1, 16, 16, 32, seed=5), "float32")
     out = K6.flash_attention_plain(tq, tk, tv, causal=True, q_offset=-5)
@@ -124,6 +142,7 @@ def _meta(shape, dtype=torch.float32):
     ("mixed_dtypes", TypeError, "float32 or"),
     ("gqa_mismatch", ValueError, "Hq % Hkv"),
     ("not_cuda", ValueError, "CUDA device"),
+    ("negative_q_offset", ValueError, "q_offset -1"),
 ])
 def test_wrapper_guards_off_cpu(case, exc, match):
     """Off the CPU the wrapper launches K6 or raises; it never takes the
@@ -136,5 +155,7 @@ def test_wrapper_guards_off_cpu(case, exc, match):
               torch.bfloat16 if case == "mixed_dtypes" else dt)
     before = _build.launches["flash_attention"]
     with pytest.raises(exc, match=match):
-        kops.flash_attention(q, k, v, causal=True)
+        kops.flash_attention(q, k, v, causal=True,
+                             q_offset=-1 if case == "negative_q_offset"
+                             else 0)
     assert _build.launches["flash_attention"] == before

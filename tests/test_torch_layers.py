@@ -12,9 +12,13 @@ within 3e-2, ``tests/test_kernels.py``'s attention tolerances.
 Prefill and cross-attention run through K6's plain version on the CPU
 (the port's ``mha`` routes them to ``kernels.ops.flash_attention``); the
 reference's ``mha`` runs its XLA math, in query chunks above
-``MHA_Q_CHUNK``.  Decode and the cache's masked prefill run the
+``MHA_Q_CHUNK``.  A prefill into a cache also goes through K6 in the port,
+on the cache's filled prefix with the cache's index as ``q_offset``, where
+the reference masks the whole cache by length; a decode step runs the
 reference's own math in both.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,10 +32,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import _build
 from repro_torch.models import layers as TL
 
-FIELDS = dict(name="qwen3-32b-smoke", family="dense", n_layers=2, d_model=64,
-              n_heads=4, n_kv_heads=2, d_ff=160, vocab_size=512, head_dim=16,
-              qk_norm=True)
-JCFG, TCFG = JaxConfig(**FIELDS), ModelConfig(**FIELDS)
+FIELDS = dict(name="qwen3-32b-smoke", n_layers=2, d_model=64, n_heads=4,
+              n_kv_heads=2, d_ff=160, head_dim=16, qk_norm=True)
+JCFG = JaxConfig(family="dense", vocab_size=512, **FIELDS)
+TCFG = ModelConfig(**FIELDS)
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
 DTYPES = ["float32", "bfloat16"]
 CPU = torch.device("cpu")
@@ -129,19 +133,59 @@ def test_mha_routes_prefill_through_k6(dtype, monkeypatch):
     TL.mha(tq, tk, tk, causal=True)
     TL.mha(tq[:, :1], tk, tk, causal=False)
     assert calls == [((1, 4, 24, 16), False,
-                      {"causal": True, "scale": 16 ** -0.5})]
+                      {"causal": True, "scale": 16 ** -0.5, "q_offset": 0})]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("step", ["masked_prefill", "decode"])
+def test_cache_prefill_routes_through_k6(dtype, monkeypatch):
+    """A prefill of 6 tokens at cache_index 5 hands K6 the cache's first
+    11 slots and q_offset 5, as views."""
+    calls = []
+    real = TL.ops.flash_attention
+
+    def spy(q, k, v, **kw):
+        calls.append((q.shape, k.shape, kw))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(TL.ops, "flash_attention", spy)
+    _, tp = _weights(JL.init_attention, JCFG)
+    _, tx = _acts((2, 6, 64), dtype, seed=4)
+    cache = {"k": torch.zeros(2, 32, 2, 16, dtype=tx.dtype),
+             "v": torch.zeros(2, 32, 2, 16, dtype=tx.dtype)}
+    pos = torch.arange(5, 11)[None].expand(2, 6)
+    TL.attention(tp, tx, TCFG, pos, cache=cache, cache_index=5)
+    assert calls == [((2, 4, 6, 16), (2, 2, 11, 16),
+                      {"causal": True, "scale": 16 ** -0.5, "q_offset": 5})]
+
+
+def test_mha_takes_a_length_mask_only_in_decode():
+    _, tq = _acts((1, 4, 4, 16), "float32", seed=2)
+    _, tk = _acts((1, 8, 2, 16), "float32", seed=3)
+    mask = torch.ones(1, 8, dtype=torch.bool)
+    assert TL.mha(tq[:, :1], tk, tk, causal=True,
+                  length_mask=mask).shape == (1, 1, 4, 16)
+    with pytest.raises(ValueError, match="decode step"):
+        TL.mha(tq, tk, tk, causal=True, length_mask=mask)
+
+
+#: (tokens, cache_index, cache slots) of each cache step
+CACHE_STEPS = {"masked_prefill": (6, 5, 32), "decode": (1, 11, 32),
+               "long_prefill": (1100, 300, 1500),
+               "prefill_past_end": (6, 29, 32)}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("step", list(CACHE_STEPS))
 def test_cache_paths(step, dtype):
-    """A masked prefill of 6 tokens at cache_index 5, or one decode step
-    at cache_index 11, into a 32-slot cache holding earlier K/V."""
+    """A prefill into a cache holding earlier K/V (6 tokens at index 5;
+    1,100 at index 300, past ``MHA_Q_CHUNK``, where the reference scans
+    query chunks; 6 at index 29 of 32, where the write is clamped to the
+    cache's end as JAX clamps it), or one decode step at index 11."""
     jp, tp = _weights(JL.init_attention, JCFG)
-    t, index = (6, 5) if step == "masked_prefill" else (1, 11)
+    t, index, slots = CACHE_STEPS[step]
     jx, tx = _acts((2, t, 64), dtype, seed=4)
-    jk, tk = _acts((2, 32, 2, 16), dtype, seed=5)
-    jv, tv = _acts((2, 32, 2, 16), dtype, seed=6)
+    jk, tk = _acts((2, slots, 2, 16), dtype, seed=5)
+    jv, tv = _acts((2, slots, 2, 16), dtype, seed=6)
     pos = np.broadcast_to(np.arange(index, index + t, dtype=np.int32),
                           (2, t))
     want, jcache = JL.attention(jp, jx, JCFG, jnp.asarray(pos),
@@ -213,3 +257,15 @@ def test_layer_params_round_trip():
     cast = convert.layer_params_to_torch(back, CPU, torch.bfloat16)
     assert all(v.dtype == torch.bfloat16 for v in cast.values())
     assert torch.equal(cast["wq"], bf["wq"])
+
+
+def test_config_fields_are_the_references():
+    """Each of the port's fields is the reference's, with its default, and
+    the properties the layers read agree."""
+    ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    for f in dataclasses.fields(ModelConfig):
+        assert f.name in ref and f.default == ref[f.name], f.name
+    for prop in ("head_dim_", "use_rope"):
+        assert getattr(TCFG, prop) == getattr(JCFG, prop)
+    assert TCFG.activation_dtype == torch.bfloat16
+    assert ModelConfig(**{**FIELDS, "head_dim": None}).head_dim_ == 16
