@@ -9,6 +9,9 @@ Phases, each on its own line; any failed check exits non-zero:
 
 1. the card (``nvidia-smi`` name and power limit) and the kernels' build
    from ``src/repro_torch/csrc`` (one ``nvcc`` per source, all at once);
+   the bfloat16 K6's ``ptxas`` registers and spills (none allowed), its
+   shared memory, and its ``HGMMA`` and ``UTMALDG`` instructions (by
+   ``cuobjdump -sass``; each of its three instantiations must have both);
 2. K1 ``lif_update`` on N = 77,169 random neurons, bitwise against its
    plain PyTorch version;
 3. K2 ``ell_deliver``, K3 ``lif_deliver`` and K4 ``lif_deliver_plastic``
@@ -64,12 +67,19 @@ Phases, each on its own line; any failed check exits non-zero:
    (``d_model`` 5120, 64 query and 8 KV heads of 128, ``d_ff`` 25600,
    qk-norm, rope theta 1e6; the Hugging Face model card Qwen/Qwen3-32B),
    once the dense session is freed, with random weights from ``--seed``:
-   (a) K6 against its plain version at B = 1, Hq = 64, Hkv = 8, D = 128:
-   causal T = S = 4096, causal T = S = 4000 (ragged), full T = 4096,
-   S = 1500, and a 512-token prefill at ``q_offset`` 3584 into 4096 keys,
-   each in float32 (within 2e-5, ``tests/test_kernels.py``'s tolerance)
-   and bfloat16 (within one rounding of the output: rtol 2**-7, atol
-   1e-4); (b) one layer in bfloat16, B = 1, T = 4096: ``rms_norm``,
+   (a) K6 against its float32 plain version on the same values at B = 1,
+   Hq = 64, Hkv = 8, D = 128: causal T = S = 4096, causal T = S = 4000
+   (ragged), full T = 4096, S = 1500, and a 512-token prefill at
+   ``q_offset`` 3584 into 4096 keys; and at ``tests/test_kernels.py``'s
+   four shapes (D = 32 and 64, B = 2, ragged T, cross-shaped); each in
+   float32 (the CUDA-core kernel, within 2e-5, that test's tolerance),
+   in bfloat16 (the tensor-core kernel, within
+   ``flash_attention.bf16_bar``: it rounds P to bfloat16 as the JAX
+   layers do) and in bfloat16 with q = 0, where every live p is exactly 1
+   (within one rounding of the output: rtol 2**-7, atol 1e-4); each
+   launch prints its largest error, the error's and the reference's RMS
+   and its largest error over its bar; (b) one layer in bfloat16, B = 1,
+   T = 4096: ``rms_norm``,
    ``attention`` (qk-norm, rope, K6), residual, ``rms_norm``, ``mlp``,
    residual, then the cache path: prefills of 2048 and 2047 tokens into a
    4096-slot cache (K6 with ``q_offset`` 0 and 2048 on the cache's filled
@@ -85,11 +95,13 @@ Phases, each on its own line; any failed check exits non-zero:
    ``prefill_32k`` length, its batch cut from 32 to 1), timed with CUDA
    events, its last 512 rows against the plain version over all keys
    (the whole score matrix would take 275 GB); (d) K6's time at (a)'s
-   causal shape in bfloat16 and float32 (CUDA events over 16 calls)
-   beside its bound (the operations at the bf16 tensor-core rate), its
-   plain version's and one ``scaled_dot_product_attention`` call's as
-   the library call.  Every compared tensor's RMS is printed beside its
-   error.
+   causal shape in bfloat16 (the tensor-core kernel) and float32 (the
+   CUDA-core one; the bfloat16 one must be at least 5 times faster) by
+   CUDA events over 16 calls, beside its bound (the operations at the
+   bf16 tensor-core rate), its plain version's and one
+   ``scaled_dot_product_attention`` call's as the library call, with
+   that call's own error over ``bf16_bar`` (information, not a gate).
+   Every compared tensor's RMS is printed beside its error.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -99,6 +111,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import re
 import subprocess
 import sys
 import time
@@ -133,11 +146,19 @@ QWEN3_32B = dict(name="qwen3-32b", n_layers=64, d_model=5120, n_heads=64,
 #: layer's and the timing's T; the long call's T = S and the rows it checks
 ATTN_SHAPES = ((4096, 4096, True, 0), (4000, 4000, True, 0),
                (4096, 1500, False, 0), (512, 4096, True, 3584))
+#: phase 10 (a) also at tests/test_kernels.py's flash-attention shapes,
+#: (B, Hq, Hkv, T, S, D, causal): D = 32 and 64, B = 2, ragged T, cross
+ATTN_TEST_SHAPES = ((1, 2, 2, 64, 64, 32, True), (2, 4, 2, 128, 128, 64, True),
+                    (1, 8, 1, 100, 100, 64, True),
+                    (2, 4, 4, 128, 256, 32, False))
 ATTN_T, ATTN_T_LONG, ATTN_BAND = 4096, 32768, 512
-#: K6 against its plain version on the same inputs, (rtol, atol) by the
-#: output's type: float32 within 2e-5 (tests/test_kernels.py); bfloat16
-#: within one rounding of the output (a bfloat16 ulp is at most 2**-7 of
-#: the value), atol 1e-4 for outputs near 0
+#: K6 against its float32 plain version on the same values, (rtol, atol)
+#: by the output's type: float32 within 2e-5 (tests/test_kernels.py);
+#: bfloat16 within one rounding of the output (a bfloat16 ulp is at most
+#: 2**-7 of the value, atol 1e-4 for outputs near 0) only in the exact-P
+#: cases (q = 0, every live p exactly 1).  Every other bfloat16 launch is
+#: held to ``flash_attention.bf16_bar``: the tensor-core kernel rounds P
+#: to bfloat16 before P.V, as src/repro/models/layers.py:187 does.
 ATTN_TOL = {"torch.float32": (2e-5, 2e-5), "torch.bfloat16": (2 ** -7, 1e-4)}
 #: the layer's bfloat16 outputs against the same layer with K6's plain
 #: version, whose outputs differ from K6's by a rounding and then pass
@@ -265,6 +286,37 @@ def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sm90_build(_build) -> None:
+    """The tensor-core K6's build: ``ptxas``'s registers and spills, its
+    shared memory a block, and the ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA
+    load) instructions in each instantiation's SASS (``cuobjdump``).
+    Fails where an instantiation has none of either, or spills."""
+    name = "flash_attention_sm90"
+    lib = _build.library(name)
+    ptxas = [ln.strip() for ln in _build.ptxas_report.get(name, "")
+             .splitlines() if "registers" in ln or "spill" in ln]
+    sass = subprocess.run(
+        [_build.cuda_tool("cuobjdump"), "-sass",
+         str(_build.library_path(name))], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    ops = {}
+    for fn in sass.split("Function : ")[1:]:
+        d = re.search(r"flash_sm90_kernelILi(\d+)E", fn.split("\n", 1)[0])
+        if d:
+            ops[f"D={d.group(1)}"] = {op: len(re.findall(op, fn))
+                                     for op in ("HGMMA", "UTMALDG")}
+    smem = {d: lib.flash_attention_sm90_smem_bytes(d) for d in (32, 64, 128)}
+    say("sm90_build", ptxas=json.dumps(ptxas), smem_bytes=json.dumps(smem),
+        sass=json.dumps(ops))
+    if len(ops) != 3 or not all(c["HGMMA"] and c["UTMALDG"]
+                                for c in ops.values()):
+        fail(f"the bf16 K6 is not on the tensor cores and TMA in all three "
+             f"instantiations: {ops}")
+    if any("spill" in ln and "0 bytes spill stores, 0 bytes spill loads"
+           not in ln for ln in ptxas):
+        fail(f"the bf16 K6 spills: {ptxas}")
+
+
 def attention_phase(seed: int) -> dict:
     """Phase 10 (the module's docstring).  Returns the attention path's
     launch counts, K6's largest error against its plain version, and K6's
@@ -283,7 +335,7 @@ def attention_phase(seed: int) -> dict:
     qwen = ModelConfig(**QWEN3_32B)
     hq, hkv, hd = qwen.n_heads, qwen.n_kv_heads, qwen.head_dim_
     gen = torch.Generator(device=dev).manual_seed(seed)
-    max_err = 0.0
+    max_err = max_over_bar = 0.0
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
@@ -291,20 +343,30 @@ def attention_phase(seed: int) -> dict:
     def rms(x) -> float:
         return float(x.float().pow(2).mean().sqrt())
 
-    def against_plain(got, q, k, v, what: str, **kw) -> dict:
-        """K6's output ``got`` against its plain version on the same
-        inputs (``kw``: the call's causal, scale and q_offset), within
-        ``ATTN_TOL`` of the output's type."""
-        nonlocal max_err
-        want = K6.flash_attention_plain(q, k, v, **kw).float()
-        rtol, atol = ATTN_TOL[str(got.dtype)]
-        err = float((got.float() - want).abs().max())
-        if not torch.allclose(got.float(), want, rtol=rtol, atol=atol):
-            fail(f"{what}: max |diff| {err} against the plain version "
-                 f"(rtol {rtol}, atol {atol}), or not finite")
-        max_err = max(max_err, err)
-        return {"max_abs_err": err, "ref_rms": rms(want), "rtol": rtol,
-                "atol": atol}
+    def against_plain(got, q, k, v, what: str, exact_p=False, **kw) -> dict:
+        """K6's output ``got`` against its float32 plain version on the
+        same values (``kw``: the call's causal, scale and q_offset):
+        bfloat16 within ``K6.bf16_bar``, or within ``ATTN_TOL`` where
+        ``exact_p`` (q = 0); float32 within ``ATTN_TOL``."""
+        nonlocal max_err, max_over_bar
+        want = K6.flash_attention_plain(q.float(), k.float(), v.float(),
+                                        **kw)
+        if got.dtype == torch.bfloat16 and not exact_p:
+            bar, kind = K6.bf16_bar(q, k, v, **kw), "bf16_bar"
+        else:
+            rtol, atol = ATTN_TOL[str(got.dtype)]
+            bar, kind = atol + rtol * want.abs(), f"rtol={rtol},atol={atol}"
+        diff = (got.float() - want).abs()
+        res = {"max_abs_err": float(diff.max()), "err_rms": rms(diff),
+               "ref_rms": rms(want), "err_over_bar": float((diff / bar).max()),
+               "bar": kind}
+        if not (bool(torch.isfinite(got).all()) and res["err_over_bar"] <= 1):
+            fail(f"{what}: {res} beyond its bar against the plain version, "
+                 f"or not finite")
+        max_err = max(max_err, res["max_abs_err"])
+        if kind == "bf16_bar":
+            max_over_bar = max(max_over_bar, res["err_over_bar"])
+        return res
 
     def near(got, want, what: str) -> dict:
         """One of the layer's outputs against its plain-K6 twin: finite,
@@ -321,19 +383,30 @@ def attention_phase(seed: int) -> dict:
                  f"{LAYER_RMS_TOL}*RMS(ref), or not finite")
         return res
 
-    # (a) K6 against its plain version at the attention shapes
-    for t_len, s_len, causal, q_off in ATTN_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
-            qkv = (randn(1, hq, t_len, hd, dtype=dtype),
-                   randn(1, hkv, s_len, hd, dtype=dtype),
-                   randn(1, hkv, s_len, hd, dtype=dtype))
+    # (a) K6 against its plain version at the attention shapes and the
+    # tests' shapes; each bfloat16 shape once more with q = 0 (exact P)
+    shapes = [(1, hq, hkv, t, s, hd, causal, q_off)
+              for t, s, causal, q_off in ATTN_SHAPES]
+    shapes += [cfg + (0,) for cfg in ATTN_TEST_SHAPES]
+    for b, n_q, n_kv, t_len, s_len, d, causal, q_off in shapes:
+        for dtype, exact_p in ((torch.bfloat16, False),
+                               (torch.bfloat16, True),
+                               (torch.float32, False)):
+            qkv = (randn(b, n_q, t_len, d, dtype=dtype),
+                   randn(b, n_kv, s_len, d, dtype=dtype),
+                   randn(b, n_kv, s_len, d, dtype=dtype))
+            if exact_p:
+                qkv[0].zero_()
             kw = dict(causal=causal, q_offset=q_off)
             got = K6.flash_attention(*qkv, **kw)
-            res = against_plain(got, *qkv, f"K6 at T={t_len}, S={s_len}, "
+            res = against_plain(got, *qkv, f"K6 at B={b}, Hq={n_q}, "
+                                f"Hkv={n_kv}, T={t_len}, S={s_len}, D={d}, "
                                 f"causal={causal}, q_offset={q_off}, "
-                                f"{dtype}", **kw)
-            say("K6", b=1, hq=hq, hkv=hkv, d=hd, t=t_len, s=s_len,
-                causal=causal, q_offset=q_off, dtype=str(dtype), **res)
+                                f"{dtype}, exact_p={exact_p}",
+                                exact_p=exact_p, **kw)
+            say("K6", b=b, hq=n_q, hkv=n_kv, d=d, t=t_len, s=s_len,
+                causal=causal, q_offset=q_off, dtype=str(dtype),
+                exact_p=exact_p, **res)
             del qkv, got
     torch.cuda.empty_cache()
 
@@ -467,8 +540,9 @@ def attention_phase(seed: int) -> dict:
     del qkv, out32
     torch.cuda.empty_cache()
 
-    # (d) K6's times at (a)'s causal shape, bf16 and float32; the library
-    # call is one scaled_dot_product_attention (the port never calls it)
+    # (d) K6's times at (a)'s causal shape: bf16 (the tensor-core kernel)
+    # and float32 (the CUDA-core one); the library call is one
+    # scaled_dot_product_attention (the port never calls it)
     t_len = ATTN_T
     qkv = (randn(1, hq, t_len, hd), randn(1, hkv, t_len, hd),
            randn(1, hkv, t_len, hd))
@@ -490,8 +564,14 @@ def attention_phase(seed: int) -> dict:
                                                     enable_gqa=True)
     sdpa_ms = call_ms(sdpa, iters=16)
     k6_lib = {"ms": sdpa_ms, "call_ms": sdpa_ms, "timing": "events"}
-    sdpa_err = float((sdpa(0).float()
-                      - K6.flash_attention(*qkv).float()).abs().max())
+    # SDPA rounds P to bf16 too: its own err / bar against the plain
+    # version, for information only
+    sdpa_out = sdpa(0).float()
+    sdpa_err = float((sdpa_out - K6.flash_attention(*qkv).float())
+                     .abs().max())
+    sdpa_over_bar = float(((sdpa_out - K6.flash_attention_plain(
+        *(t.float() for t in qkv))).abs() / K6.bf16_bar(*qkv)).max())
+    del sdpa_out
     # q, k, v read once and the output written once; the two products over
     # the live (causal) query-key pairs
     k6_bytes = 2 * (2 * hq * t_len * hd + 2 * hkv * t_len * hd)
@@ -499,11 +579,18 @@ def attention_phase(seed: int) -> dict:
     say("timing_attention", shape=f"1x{hq}x{t_len}x{hd}/{hkv}",
         K6=json.dumps(k6), K6_f32=json.dumps(k6_f32),
         K6_plain=json.dumps(k6_plain), library_sdpa=json.dumps(k6_lib),
-        sdpa_vs_K6_max_abs_diff=sdpa_err, K6_tflops=k6_ops / k6["ms"] / 1e9,
+        sdpa_vs_K6_max_abs_diff=sdpa_err, sdpa_err_over_bar=sdpa_over_bar,
+        K6_tflops=k6_ops / k6["ms"] / 1e9,
+        K6_f32_tflops=k6_ops / k6_f32["ms"] / 1e9,
+        K6_over_K6_f32=k6_f32["ms"] / k6["ms"],
         phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    if k6_f32["ms"] < 5 * k6["ms"]:
+        fail(f"the bf16 tensor-core K6 ({k6['ms']} ms) is not 5 times "
+             f"faster than the float32 one ({k6_f32['ms']} ms)")
     del qkv, qkv_f32
     torch.cuda.empty_cache()
-    return dict(launches=launches, max_err=max_err, k6=k6, k6_f32=k6_f32,
+    return dict(launches=launches, max_err=max_err,
+                max_over_bar=max_over_bar, k6=k6, k6_f32=k6_f32,
                 k6_plain=k6_plain, k6_lib=k6_lib, k6_bytes=k6_bytes,
                 k6_ops=k6_ops, ms_32k=ms_32k)
 
@@ -558,6 +645,7 @@ def main() -> None:
         regs = [ln.strip() for ln in _build.ptxas_report.get(name, "")
                 .splitlines() if "registers" in ln]
         say("ptxas", kernel=name, report=json.dumps(regs))
+    sm90_build(_build)
     grid = K3.cooperative_grid(dev, 77_170)
     say("build", seconds=f"{build_s:.2f}", cooperative_grid=grid,
         K4_grid=K3.cooperative_grid(dev, 77_170, plastic=True),
@@ -1212,11 +1300,13 @@ def main() -> None:
             "src/repro/kernels/spike_deliver.py:51", k5d, k5d_plain,
             k5d_bytes, spikes_d * Dd * Nd, k5d_lib,
             max_err["gated_spike_matvec"]),
-        row("flash_attention", "flash_attention.cu",
+        row("flash_attention", "flash_attention_sm90.cu",
             "src/repro/kernels/flash_attention.py:70", att["k6"],
             att["k6_plain"], att["k6_bytes"], att["k6_ops"], att["k6_lib"],
             max_err["flash_attention"], ops_per_s=BF16_TC_OPS_PER_S)
-        | {"ms_f32": att["k6_f32"]["ms"], "ms_32k": att["ms_32k"]},
+        | {"ms_f32": att["k6_f32"]["ms"],
+           "source_f32": "src/repro_torch/csrc/flash_attention.cu",
+           "ms_32k": att["ms_32k"], "max_err_over_bar": att["max_over_bar"]},
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,7 @@
-// K6: causal or full GQA attention with an online softmax (flash attention).
+// K6, float32 path: causal or full GQA attention with an online softmax
+// (flash attention) on the CUDA cores.  bfloat16 inputs take the
+// tensor-core kernel of flash_attention_sm90.cu; the wrapper
+// (kernels/flash_attention.py) picks by dtype.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py:
 // flash_attention_pallas (body _kernel, pallas_call at :90).  For each
@@ -11,8 +14,8 @@
 // q_offset 0 the causal mask is top-left aligned (query 0 sees key 0), as
 // in the TPU kernel and in repro/models/layers.py:_mha_block with q_offset
 // 0; a prefill into a KV cache passes the cache's index as q_offset and
-// the cache's filled prefix as K and V.  Inputs are float32
-// or bfloat16; everything inside is float32 and the output has q's type.
+// the cache's filled prefix as K and V.  Inputs, output and every sum are
+// float32.
 //
 // The TPU kernel runs its kv-block grid axis in order on one core and
 // carries the running max m, denominator l and accumulator in VMEM scratch
@@ -24,24 +27,23 @@
 // K is staged transposed (Kt) and then V row-major in the same buffer, and
 // the tile's probabilities go through shared memory (Pt) to the P.V
 // product.  Both products are float32 FMAs on the CUDA cores (explicit
-// __fmaf_rn: the build's --fmad=false forbids only implicit contraction).
-// Ragged T and S are masked here, not padded by the wrapper; keys past S
-// are staged as zeros.  Causally dead K/V tiles are never loaded, and the
-// tiles run in reverse query order so the longest rows start first.
+// __fmaf_rn: the build's --fmad=false forbids only implicit contraction),
+// so float32 inputs keep float32 products; the tensor cores would take
+// them only as TF32.  Ragged T and S are masked here, not padded by the
+// wrapper; keys past S are staged as zeros.  Causally dead K/V tiles are
+// never loaded, and the tiles run in reverse query order so the longest
+// rows start first.
 //
 // Bound: 4 * B * Hq * D * (live query-key pairs) operations (the two
-// products) against 2 * (|q| + |k| + |v| + |out|) bytes; at the Qwen3-32B
-// shape (B = 1, Hq = 64, Hkv = 8, D = 128, T = S = 4096, causal, bf16)
-// that is 275 GFLOP against 151 MB, so operations bound it by far: 0.28 ms
-// at the bf16 tensor-core rate, 4.1 ms at the float32 CUDA-core rate this
-// kernel computes at.  Tensor cores (wgmma), TMA and the reuse of one K/V
-// tile across the query heads of a GQA group are later work.
+// products) against 4 * (|q| + |k| + |v| + |out|) bytes; at the Qwen3-32B
+// shape (B = 1, Hq = 64, Hkv = 8, D = 128, T = S = 4096, causal) that is
+// 275 GFLOP against 302 MB, so operations bound it: 4.1 ms at the
+// 67 TFLOP/s float32 rate.
 //
 // Shared memory: Qt [D][68], the K/V buffer [D][68], Pt [64][68] floats,
 // 85 KB at D = 128, so two blocks fit on an SM.  The transposed rows are
 // 68 floats wide so that float4 reads stay aligned and the per-key stores
 // of K and P fall on distinct banks.
-#include <cuda_bf16.h>
 #include <math.h>
 
 #include "common.cuh"
@@ -57,18 +59,6 @@ static_assert(kBq == kBk, "Q and K/V tiles are staged by one routine");
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Element strides of one [B, H, L, D] operand; the last dim is contiguous.
 struct Strides {
@@ -79,8 +69,8 @@ struct Strides {
 // `n_rows` as zeros, into dst transposed: dst[d * kLd + row].  Each thread
 // moves 4 consecutive d of one row; neighbouring threads take neighbouring
 // rows, so the shared stores fall on distinct banks.
-template <int D, typename T>
-__device__ __forceinline__ void stage_transposed(const T* src, long long ld,
+template <int D>
+__device__ __forceinline__ void stage_transposed(const float* src, long long ld,
                                                  int row0, int n_rows,
                                                  float* dst) {
   constexpr int kChunks = kBk * D / 4;
@@ -96,8 +86,8 @@ __device__ __forceinline__ void stage_transposed(const T* src, long long ld,
 }
 
 // The same tile row-major: dst[row * D + d].
-template <int D, typename T>
-__device__ __forceinline__ void stage_rows(const T* src, long long ld,
+template <int D>
+__device__ __forceinline__ void stage_rows(const float* src, long long ld,
                                            int row0, int n_rows, float* dst) {
   constexpr int kChunks = kBk * D / 4;
   for (int i = threadIdx.x; i < kChunks; i += kThreads) {
@@ -113,10 +103,10 @@ constexpr int smem_floats() {
   return 2 * D * kLd + kBk * kLd;
 }
 
-template <int D, typename T>
+template <int D>
 __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, Strides sq, Strides sk,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, Strides sq, Strides sk,
     Strides sv, Strides so, int hq, int group, int t_len, int s_len,
     float scale, int causal, int q_offset) {
   static_assert(D % 64 == 0 || D == 32, "D must be 32 or a multiple of 64");
@@ -131,9 +121,9 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBq;
   const int b = blockIdx.y / hq, h = blockIdx.y % hq, hk = h / group;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + hk * sk.h;
-  const T* vb = v + b * sv.b + hk * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + hk * sk.h;
+  const float* vb = v + b * sv.b + hk * sv.h;
 
   stage_transposed<D>(qb, sq.l, q0, t_len, Qt);
 
@@ -239,23 +229,22 @@ __global__ void __launch_bounds__(kThreads, 2) flash_kernel(
     }
   }
 
-  T* ob = o + b * so.b + h * so.h;
+  float* ob = o + b * so.b + h * so.h;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty * 4 + i;
     if (row >= t_len) continue;
     const float denom = l[i] == 0.f ? 1.f : l[i];  // no live key -> 0
-    T* orow = ob + row * so.l;
+    float* orow = ob + row * so.l;
 #pragma unroll
     for (int n = 0; n < kNv; ++n)
 #pragma unroll
       for (int e = 0; e < kVec; ++e)
-        store1(orow + tx * kVec + 16 * kVec * n + e,
-               acc[i][n * kVec + e] / denom);
+        orow[tx * kVec + 16 * kVec * n + e] = acc[i][n * kVec + e] / denom;
   }
 }
 
-template <int D, typename T>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o,
            Strides sq, Strides sk, Strides sv, Strides so, int b, int hq,
            int hkv, int t, int s, float scale, int causal, int q_offset,
@@ -263,30 +252,29 @@ int launch(const void* q, const void* k, const void* v, void* o,
   constexpr int bytes = smem_floats<D>() * static_cast<int>(sizeof(float));
   // above 48 KB a block's shared memory must be asked for (per device)
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t + kBq - 1) / kBq, b * hq);
-  flash_kernel<D, T><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, hq,
+  flash_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, sv, so, hq,
       hq / hkv, t, s, scale, causal, q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
 int launch_d(int d, const void* q, const void* k, const void* v, void* o,
              Strides sq, Strides sk, Strides sv, Strides so, int b, int hq,
              int hkv, int t, int s, float scale, int causal, int q_offset,
              cudaStream_t stream) {
   switch (d) {
     case 32:
-      return launch<32, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
+      return launch<32>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
                            scale, causal, q_offset, stream);
     case 64:
-      return launch<64, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
+      return launch<64>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
                            scale, causal, q_offset, stream);
     case 128:
-      return launch<128, T>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
+      return launch<128>(q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
                             scale, causal, q_offset, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -298,21 +286,18 @@ int launch_d(int d, const void* q, const void* k, const void* v, void* o,
 // q [b, hq, t, d], k and v [b, hkv, s, d], o [b, hq, t, d], each given by
 // its data pointer and its batch, head and row strides in elements (the
 // last dim contiguous; strides multiples of 4 and pointers 16-byte
-// aligned, which the wrapper checks); all float32 (bf16 == 0) or all
-// bfloat16; d in {32, 64, 128}; hq % hkv == 0; t >= 1; q_offset >= 0.
+// aligned, which the wrapper checks); all float32; d in {32, 64, 128};
+// hq % hkv == 0; t >= 1; q_offset >= 0.
 EXPORT int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, long long sqb,
     long long sqh, long long sql, long long skb, long long skh,
     long long skl, long long svb, long long svh, long long svl,
     long long sob, long long soh, long long sol, int b, int hq, int hkv,
-    int t, int s, int d, int bf16, float scale, int causal, int q_offset,
+    int t, int s, int d, float scale, int causal, int q_offset,
     void* stream) {
   const Strides sq{sqb, sqh, sql}, sk{skb, skh, skl}, sv{svb, svh, svl},
       so{sob, soh, sol};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    return launch_d<__nv_bfloat16>(d, q, k, v, o, sq, sk, sv, so, b, hq, hkv,
-                                   t, s, scale, causal, q_offset, st);
-  return launch_d<float>(d, q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s,
-                         scale, causal, q_offset, st);
+  return launch_d(d, q, k, v, o, sq, sk, sv, so, b, hq, hkv, t, s, scale,
+                  causal, q_offset, st);
 }

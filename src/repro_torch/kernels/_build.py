@@ -10,7 +10,9 @@ rebuilt, never reused stale.  All sources are compiled together, one
 
 ``launches`` holds one plain integer per kernel (``KERNELS``; K3 and K4 are
 two instantiations of one template in one library, K5,
-``gated_spike_matvec``, lives in ``spike_deliver``, and K6 is
+``gated_spike_matvec``, lives in ``spike_deliver``, and K6,
+``flash_attention``, is two kernels: bfloat16 on the tensor cores in
+``flash_attention_sm90``, float32 on the CUDA cores in
 ``flash_attention``).  A wrapper adds one where it launches its kernel,
 and nowhere else, so a run can show that its path went through the
 kernels (``reset_launches`` before, read after).
@@ -39,14 +41,15 @@ SOURCES = {
     "stdp_update": "stdp_update.cu",
     "spike_deliver": "spike_deliver.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_sm90": "flash_attention_sm90.cu",
 }
-#: kernel name -> the library that holds it
-KERNELS = {"lif_update": "lif_update", "ell_deliver": "ell_deliver",
-           "lif_deliver": "lif_deliver",
-           "lif_deliver_plastic": "lif_deliver",
-           "stdp_update": "stdp_update",
-           "gated_spike_matvec": "spike_deliver",
-           "flash_attention": "flash_attention"}
+#: kernel name -> the libraries that hold it
+KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("ell_deliver",),
+           "lif_deliver": ("lif_deliver",),
+           "lif_deliver_plastic": ("lif_deliver",),
+           "stdp_update": ("stdp_update",),
+           "gated_spike_matvec": ("spike_deliver",),
+           "flash_attention": ("flash_attention_sm90", "flash_attention")}
 
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn: no multiply-add
 # may contract into an FMA, or V would differ from the plain version.
@@ -67,21 +70,24 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
+def cuda_tool(name: str = "nvcc") -> str:
+    """The path of one of the CUDA toolkit's programs (``nvcc``,
+    ``cuobjdump``): on PATH, else under $CUDA_HOME/bin."""
+    found = shutil.which(name)
     if found:
         return found
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
         or "/usr/local/cuda"
-    path = Path(home) / "bin" / "nvcc"
+    path = Path(home) / "bin" / name
     if not path.exists():
         raise RuntimeError(
-            "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
-            "repro_torch are built from csrc/ at first use on a CUDA machine")
+            f"{name} not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+            f"repro_torch are built from csrc/ at first use on a CUDA machine")
     return str(path)
 
 
-def _lib_path(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where library ``name`` of the current sources and flags is built."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.iterdir()):
         if src.suffix in (".cu", ".cuh") and (
@@ -94,12 +100,12 @@ def _lib_path(name: str) -> Path:
 def build_all() -> float:
     """Compile every source that has no up-to-date library, all at once;
     returns the wall seconds spent (0 when everything was built)."""
-    todo = {name: _lib_path(name) for name in SOURCES}
+    todo = {name: library_path(name) for name in SOURCES}
     todo = {k: p for k, p in todo.items() if not p.exists()}
     if not todo:
         return 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool("nvcc")
     t0 = time.perf_counter()
     procs = {}
     for name, out in todo.items():
@@ -128,7 +134,7 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build_all()
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib = ctypes.CDLL(str(library_path(name)))
             lib.kernel_error_string.restype = ctypes.c_char_p
             lib.kernel_error_string.argtypes = [ctypes.c_int]
             _libs[name] = lib
