@@ -230,6 +230,54 @@ def timed(fn, iters: int = 64) -> dict:
             "timing": "events" if dev is None else "profiler"}
 
 
+def phase_table(stamps, names) -> dict:
+    """Per phase of K3's or K4's stamped launches: the median, mean and
+    largest microseconds over every block of every launch; ``span``, the
+    launch's first stamp to its last over all blocks; ``start_skew``, its
+    blocks' first stamps apart; ``tick_ns``, the least nonzero step
+    between two stamps of a block (the timer's resolution, or above it).
+    ``stamps`` is ``[launches, grid, len(names) + 1]`` int64 ns."""
+    import torch
+    st = stamps.to(torch.float64)
+    d = (st[:, :, 1:] - st[:, :, :-1]) / 1e3
+    out = {}
+    for k, name in enumerate(names):
+        v = d[:, :, k].flatten()
+        out[name] = [float(v.median()), float(v.mean()), float(v.max())]
+    for name, v in (("span", st[:, :, -1].amax(1) - st[:, :, 0].amin(1)),
+                    ("start_skew", st[:, :, 0].amax(1) - st[:, :, 0].amin(1))):
+        v = v / 1e3
+        out[name] = [float(v.median()), float(v.mean()), float(v.max())]
+    steps = (stamps[:, :, 1:] - stamps[:, :, :-1]).flatten()
+    out["tick_ns"] = int(steps[steps > 0].min()) if bool((steps > 0).any()) \
+        else None
+    return out
+
+
+def graph_replay(launch, eager, compare, n: int = 64, replays: int = 16):
+    """Captures ``launch(0..n-1)`` into one CUDA graph, replays it once and
+    holds each launch's outputs to ``eager(i)``'s (the same launches run
+    eagerly on copies of the in-place state) with ``compare``; returns the
+    milliseconds per launch over ``replays`` more replays (CUDA events)."""
+    import torch
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [launch(i) for i in range(n)]
+    g.replay()
+    want = [eager(i) for i in range(n)]
+    torch.cuda.synchronize()
+    for i in range(n):
+        compare(i, outs[i], want[i])
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        g.replay()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / (replays * n)
+
+
 def bitwise(a, b) -> bool:
     """Same shape and the same bits (float tensors compared as int32)."""
     import torch
@@ -1050,6 +1098,44 @@ def main() -> None:
         K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
         K2_index_add=json.dumps(k2_lib))
 
+    def k3_on(r):
+        return lambda i, **kw: K3.lif_deliver(
+            r, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
+            prop=prop, **kw)
+
+    def stamps_of(launch, plastic):
+        g = K3.cooperative_grid(dev, N + 1, plastic)
+        for i in range(3):
+            launch(i, stamps=K3.stamped_launch(g, dev))
+        bufs = [K3.stamped_launch(g, dev) for _ in range(64)]
+        for i, b in enumerate(bufs):
+            launch(i, stamps=b)
+        torch.cuda.synchronize()
+        return phase_table(torch.stack(bufs), K3.PHASES)
+
+    def same_outputs(what, names, tol):
+        def compare(i, got, want):
+            for name, a, b in zip(names, got, want):
+                ok = (torch.allclose(a, b, rtol=RING_RTOL, atol=RING_ATOL)
+                      if name in tol else bitwise(a, b))
+                if not ok:
+                    fail(f"{what} in a CUDA graph: launch {i}'s {name} "
+                         f"differs from the same launch run eagerly")
+        return compare
+
+    say("K3_phases", spikes=spikes_per_step, launches=64,
+        us_median_mean_max=json.dumps(stamps_of(k3_on(ring), False)))
+    ring_g = ring0()
+    ring_e = ring_g.clone()
+    k3_on(ring_e.clone())(0)             # warm-up outside the capture
+    k3["graph_ms"] = graph_replay(
+        k3_on(ring_g), k3_on(ring_e), same_outputs(
+            "K3", ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
+                   "overflow"), ("ring", "I_ex", "I_in")))
+    del ring_g, ring_e
+    say("K3_graph", launches_captured=64, replay_equal_to_eager=True,
+        graph_ms=k3["graph_ms"], ms=k3["ms"], call_ms=k3["call_ms"])
+
     # K4 and stdp_update at the plastic path's shapes: its mean spike count,
     # the session's weights (a copy), random traces
     ptables = rule.tables
@@ -1067,6 +1153,25 @@ def main() -> None:
     k4_plain = timed(lambda i: K3.lif_deliver_plastic_plain(
         ring, tables.targets, w_t, tables.dbins, pmask, spks_pl[i % 64],
         *k4_state, **k4_kw))
+
+    def k4_on(r, w_live):
+        return lambda i, **kw: K3.lif_deliver_plastic(
+            r, tables.targets, w_live, tables.dbins, pmask, spks_pl[i % 64],
+            *k4_state, **k4_kw, **kw)
+
+    say("K4_phases", spikes=spikes_pl, launches=64,
+        us_median_mean_max=json.dumps(stamps_of(k4_on(ring, w_t), True)))
+    ring_g, w_g = ring0(), w_t.clone()
+    ring_e, w_e = ring_g.clone(), w_t.clone()
+    k4_on(ring_e.clone(), w_t)(0)        # warm-up outside the capture
+    k4["graph_ms"] = graph_replay(
+        k4_on(ring_g, w_g), k4_on(ring_e, w_e), same_outputs(
+            "K4", ("ring", "weights", "V", "I_ex", "I_in", "refrac",
+                   "spiked", "x_pre", "x_post", "ids", "overflow"),
+            ("ring", "I_ex", "I_in")))
+    del ring_g, ring_e, w_g, w_e
+    say("K4_graph", launches_captured=64, replay_equal_to_eager=True,
+        graph_ms=k4["graph_ms"], ms=k4["ms"], call_ms=k4["call_ms"])
     stdp_args = lambda i: (tables.targets, pmask, ptables.in_syn_idx,
                            ptables.plastic_in, ids_pl[i % 64], x_pre_t,
                            x_post_t, spks_pl[i % 64], rule.coef)
@@ -1276,7 +1381,8 @@ def main() -> None:
                 "bound_ms": b_ms, "bound_by": b_by,
                 "library_ms": None if lib is None else lib["ms"],
                 "call_ms": t["call_ms"], "plain_call_ms": plain["call_ms"],
-                "timing": t["timing"]}
+                "timing": t["timing"]} | (
+                    {"graph_ms": t["graph_ms"]} if "graph_ms" in t else {})
 
     kernels = [
         row("lif_update", "lif_update.cu",

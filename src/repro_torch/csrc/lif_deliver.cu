@@ -47,6 +47,23 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kBlock = 512;
+// %globaltimer stamps a block: start, the end of each phase and barrier
+constexpr int kStamps = 8;
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Stamp k of this block, once its threads are all past the point.
+template <bool kOn>
+__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
+  if constexpr (kOn) {
+    __syncthreads();
+    if (threadIdx.x == 0) s[blockIdx.x * kStamps + k] = global_ns();
+  }
+}
 
 struct PlasticArgs {                  // K4 only
   Depression dep;                     // weights = the live table
@@ -76,16 +93,18 @@ struct StepArgs {
   int* counts;                        // [gridDim.x] scratch
   int* ids;                           // [budget] delivered ids
   int* overflow;                      // [1] budget excess of spiked_prev
+  unsigned long long* stamps;         // [grid, kStamps], stamped launches
   int n, n_exc, d_bins, budget, t_prev;
   LifProp p;
   PlasticArgs pl;
 };
 
-template <bool kPlastic>
+template <bool kPlastic, bool kStamped = false>
 __global__ void __launch_bounds__(kBlock) lif_deliver_kernel(StepArgs a) {
   cg::grid_group grid = cg::this_grid();
   __shared__ int smem[32];
   const int n_cols = a.n + 1;
+  stamp<kStamped>(a.stamps, 0);
 
   // 1. ordered compaction of the previous step's spikes
   const int n_tiles = static_cast<int>(gridDim.x);
@@ -94,14 +113,18 @@ __global__ void __launch_bounds__(kBlock) lif_deliver_kernel(StepArgs a) {
   const int hi = min(lo + tile, a.n);
   const int c = tile_count(a.spiked_prev, lo, hi, smem);
   if (threadIdx.x == 0) a.counts[blockIdx.x] = c;
+  stamp<kStamped>(a.stamps, 1);
   grid.sync();
+  stamp<kStamped>(a.stamps, 2);
   int total;
   const int rank = tiles_before(a.counts, static_cast<int>(blockIdx.x),
                                 static_cast<int>(gridDim.x), smem, &total);
   if (rank < a.budget)
     tile_write(a.spiked_prev, lo, hi, rank, a.ids, a.budget, smem);
   compact_tail(total, a.ids, a.budget, a.n, a.overflow);
+  stamp<kStamped>(a.stamps, 3);
   grid.sync();
+  stamp<kStamped>(a.stamps, 4);
 
   // 2. scatter: (id, chunk) work items of the real ids only
   const int n_real = min(total, a.budget);
@@ -112,7 +135,9 @@ __global__ void __launch_bounds__(kBlock) lif_deliver_kernel(StepArgs a) {
                             min(j0 + kScatterChunk, a.tb.k_pad), a.ring,
                             a.t_prev, a.d_bins, n_cols, a.n_exc, a.pl.dep);
   }
+  stamp<kStamped>(a.stamps, 5);
   grid.sync();
+  stamp<kStamped>(a.stamps, 6);
 
   // 3. LIF update against the just-delivered slot, which it then consumes
   const int slot = (a.t_prev + 1) % a.d_bins;
@@ -134,6 +159,7 @@ __global__ void __launch_bounds__(kBlock) lif_deliver_kernel(StepArgs a) {
     row_ex[i] = 0.0f;
     row_in[i] = 0.0f;
   }
+  stamp<kStamped>(a.stamps, 7);
 }
 
 template <bool kPlastic>
@@ -153,8 +179,11 @@ int cooperative_grid(int n_cols, int* grid_out) {
 template <bool kPlastic>
 int launch(StepArgs& a, int grid, void* stream) {
   void* args[] = {&a};
+  void* fn = a.stamps
+      ? reinterpret_cast<void*>(lif_deliver_kernel<kPlastic, true>)
+      : reinterpret_cast<void*>(lif_deliver_kernel<kPlastic>);
   cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(lif_deliver_kernel<kPlastic>), dim3(grid),
+      fn, dim3(grid),
       dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream));
   // cudaGetLastError() also clears a refused launch's error, so the next
   // launch does not report it as its own.
@@ -163,6 +192,10 @@ int launch(StepArgs& a, int grid, void* stream) {
 }
 
 }  // namespace
+
+// Stamps a block of the stamped launches (stamps != null): K3's and K4's
+// phase boundaries by %globaltimer, for chip_smoke.py's phase table.
+EXPORT int lif_deliver_stamps() { return kStamps; }
 
 // The cooperative grid of K3 (plastic = 0) or K4 for this card:
 // co-resident blocks per SM x SMs, capped at one block per kBlock ring
@@ -181,13 +214,13 @@ EXPORT int lif_deliver_grid(int n_cols, int plastic, int* grid_out) {
       int *overflow, int n, int n_exc, int d_bins, int budget, int t_prev,  \
       float P11_ex, float P11_in, float P22, float P21_ex, float P21_in,    \
       float P20, float V_th, float V_reset, float E_L, int ref_steps,       \
-      int grid
+      int grid, unsigned long long *stamps
 
 #define STEP_ARGS                                                           \
   StepArgs a{spiked_prev, EllTables{targets, weights, dbins, k_pad},        \
              ring, V, I_ex, I_in, refrac, ext_ex, i_dc, Vo, Iexo, Iino,     \
-             refo, spk, counts, ids, overflow, n, n_exc, d_bins, budget,    \
-             t_prev,                                                        \
+             refo, spk, counts, ids, overflow, stamps, n, n_exc, d_bins,    \
+             budget, t_prev,                                                \
              LifProp{P11_ex, P11_in, P22, P21_ex, P21_in, P20, V_th,        \
                      V_reset, E_L, ref_steps}}
 

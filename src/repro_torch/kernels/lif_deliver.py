@@ -41,6 +41,9 @@ from repro_torch.kernels.stdp import StdpCoef, depress_plain, traces_plain
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 _grid: dict = {}
+#: what lies between a block's consecutive stamps (see ``stamped_launch``)
+PHASES = ("count", "barrier_1", "rank_write", "barrier_2", "scatter",
+          "barrier_3", "lif")
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
@@ -83,7 +86,8 @@ def lif_deliver_plastic_plain(ring, targets, weights, dbins, pmask,
             overflow)
 
 
-_STEP_ARGTYPES = [_P] * 4 + [_I] + [_P] * 15 + [_I] * 5 + [_F] * 9 + [_I, _I]
+_STEP_ARGTYPES = ([_P] * 4 + [_I] + [_P] * 15 + [_I] * 5 + [_F] * 9
+                  + [_I, _I, _P])
 
 
 def _lib():
@@ -91,6 +95,7 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.lif_deliver_grid.restype = ctypes.c_int
         lib.lif_deliver_grid.argtypes = [_I, _I, _P]
+        lib.lif_deliver_stamps.restype = ctypes.c_int
         lib.lif_deliver_launch.restype = ctypes.c_int
         lib.lif_deliver_launch.argtypes = _STEP_ARGTYPES + [_P]
         lib.lif_deliver_plastic_launch.restype = ctypes.c_int
@@ -124,9 +129,19 @@ def cooperative_grid(device: torch.device, n_cols: int,
     return _grid[key]
 
 
+def stamped_launch(grid: int, device) -> torch.Tensor:
+    """A zeroed ``[grid, stamps]`` int64 buffer: passed as ``stamps=`` to
+    :func:`lif_deliver` or :func:`lif_deliver_plastic`, it selects the
+    kernel's stamped instantiation, which writes each block's
+    ``%globaltimer`` (ns) at its start and at the end of every phase and
+    barrier."""
+    return torch.zeros(grid, _lib().lif_deliver_stamps(), dtype=torch.int64,
+                       device=device)
+
+
 def _step_args(what, ring, targets, weights, dbins, spiked_prev, V, I_ex,
                I_in, refrac, ext_ex, i_dc, t_prev, n_exc, budget, prop,
-               plastic):
+               plastic, stamps=None):
     """Checks K3's or K4's inputs, allocates the outputs and returns them
     with the C arguments they share."""
     _check_inputs(what, ring, targets, weights, dbins, spiked_prev)
@@ -149,13 +164,14 @@ def _step_args(what, ring, targets, weights, dbins, spiked_prev, V, I_ex,
                                   Vo, Iexo, Iino, refo, spk, counts, ids,
                                   overflow)),
         _I(n), _I(n_exc), _I(ring.shape[0]), _I(budget), _I(int(t_prev)),
-        *prop_args(prop), _I(grid))
+        *prop_args(prop), _I(grid),
+        None if stamps is None else _build.ptr(stamps))
     return (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args
 
 
 def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
                 refrac, ext_ex, i_dc, t_prev: int, *, n_exc: int,
-                budget: int, prop: Propagators):
+                budget: int, prop: Propagators, stamps=None):
     """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``;
     see :func:`lif_deliver_plain`."""
     args = (ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
@@ -164,7 +180,7 @@ def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
         return lif_deliver_plain(*args, n_exc=n_exc, budget=budget,
                                  prop=prop)
     (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _step_args(
-        "lif_deliver", *args, n_exc, budget, prop, False)
+        "lif_deliver", *args, n_exc, budget, prop, False, stamps)
     lib = _lib()
     code = lib.lif_deliver_launch(*c_args, _build.stream_of(ring))
     _build.launches["lif_deliver"] += 1
@@ -176,7 +192,7 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
                         V, I_ex, I_in, refrac, ext_ex, i_dc, x_pre, x_post,
                         t_prev: int, *, n_exc: int, budget: int,
                         prop: Propagators, coef: StdpCoef,
-                        trace: bool = True):
+                        trace: bool = True, stamps=None):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
     x_pre', x_post', ids, overflow)``; see
     :func:`lif_deliver_plastic_plain`."""
@@ -194,7 +210,8 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
     if x_pre.dtype != torch.float32 or x_post.dtype != torch.float32:
         raise TypeError("lif_deliver_plastic: traces must be float32")
     (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _step_args(
-        "lif_deliver_plastic", *args, t_prev, n_exc, budget, prop, True)
+        "lif_deliver_plastic", *args, t_prev, n_exc, budget, prop, True,
+        stamps)
     x_pre_o, x_post_o = ((torch.empty_like(x_pre), torch.empty_like(x_post))
                          if trace else (x_pre, x_post))
     lib = _lib()
