@@ -16,13 +16,19 @@ Phases, each on its own line; any failed check exits non-zero:
    plain PyTorch version;
 3. K2 ``ell_deliver``, K3 ``lif_deliver`` and K4 ``lif_deliver_plastic``
    on the connectome's ELL tables with budget 256, at 0, 31, 256 and 300
-   spikes: ids, overflow, spikes, V and refrac exact (K4 also its traces
-   and the written-back weights), the ring (and the currents fed from it)
-   within rtol = atol = 1e-5 (float atomics add in no fixed order); then
-   ``stdp_update`` at the same spike counts, with and without the
-   depression and the whole-table clip, bitwise (weights and traces) from
-   a table with E->E weights above w_max; and the plastic tables' build
-   time and bytes;
+   random spikes, and at the edges of K3's compaction tiles: one spike at
+   N - 1; the first and last neuron of every tile (budget 512); 200 spikes
+   in one tile; an overflow cut inside a tile that is not the first; a
+   burst of 5,000 with budget 8,192: ids, overflow, spikes, V and refrac
+   exact (K4 also its traces and the written-back weights), the ring (and
+   the currents fed from it) within rtol = atol = 1e-5 (float atomics add
+   in no fixed order); 2,000 launches of K3 back to back on one workspace
+   at changing spike counts, each launch's ids and overflow exact against
+   ``compact_ids_plain`` and the workspace's launch count advanced 2,000;
+   then ``stdp_update`` at the four random spike counts, with and without
+   the depression and the whole-table clip, bitwise (weights and traces)
+   from a table with E->E weights above w_max; and the plastic tables'
+   build time and bytes;
 4. the port against its plain reference on the card at scale 0.02: the
    fused and split paths give the reference's spike raster, static and
    with pair STDP (and then the reference's final weights, bitwise);
@@ -45,7 +51,14 @@ Phases, each on its own line; any failed check exits non-zero:
    profiled steps, as in 5;
 8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
-   back-to-back call time from CUDA events (``call_ms``);
+   back-to-back call time from CUDA events (``call_ms``); for K3 and K4
+   also the phase table of 64 stamped launches (``[K3_phases]``,
+   ``[K4_phases]``: per phase of ``lif_deliver.PHASES``, the median, mean
+   and largest microseconds over blocks and launches by ``%globaltimer``),
+   and 64 launches captured in one ``torch.cuda.CUDAGraph``, replayed,
+   each launch's outputs held to the same launches run eagerly (exact, the
+   ring and currents within 1e-5), and timed (``graph_ms`` a launch,
+   ``[K3_graph]``, ``[K4_graph]``);
 9. the dense strategy, once the full-scale sessions are freed:
    (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
    reference path (two ``torch.matmul`` GEMVs on the source-major table)
@@ -691,12 +704,11 @@ def main() -> None:
     for name in _build.SOURCES:
         _build.library(name)
         regs = [ln.strip() for ln in _build.ptxas_report.get(name, "")
-                .splitlines() if "registers" in ln]
+                .splitlines() if "registers" in ln or "spill" in ln]
         say("ptxas", kernel=name, report=json.dumps(regs))
     sm90_build(_build)
-    grid = K3.cooperative_grid(dev, 77_170)
-    say("build", seconds=f"{build_s:.2f}", cooperative_grid=grid,
-        K4_grid=K3.cooperative_grid(dev, 77_170, plastic=True),
+    say("build", seconds=f"{build_s:.2f}",
+        K3_K4_grid=K3.cooperative_grid(dev, 77_170),
         stdp_update_grid=KS.cooperative_grid(dev))
 
     prop = Propagators.make(NeuronParams(), 0.1)
@@ -734,6 +746,7 @@ def main() -> None:
     table_bytes = sum(t.numel() * t.element_size() for t in tables)
     N, D, budget = c.n_total, c.d_max_bins, 256
     k_pad = tables.targets.shape[1]
+    grid = K3.cooperative_grid(dev, N + 1)
     say("connectome", scale=args.scale, n=N, synapses=c.n_synapses,
         k_max=c.targets.shape[1], k_pad=k_pad, d_bins=D,
         build_s=f"{build_conn_s:.1f}", tables_to_device_s=f"{prep_s:.1f}",
@@ -759,27 +772,49 @@ def main() -> None:
     tbl = (tables.targets, tables.weights, tables.dbins)
     max_err = {name: 0.0 for name in _build.KERNELS}
     t_step = 1234
-    for k in (0, 31, 256, 300):
-        spk = spiked_with(k)
+    # random spikes, then the compaction's edges: one spike at N - 1; the
+    # first and last neuron of every tile (budget 512, so that all are
+    # delivered); 200 spikes in one tile; an overflow cut inside a tile
+    # that is not the first; a burst of 5,000 (N / 2 in a smaller network)
+    # with budget 8,192
+    tiles = K3.compaction_tiles(N, grid)
+    spiked_at = lambda idx: on(np.isin(np.arange(N), idx))
+    in_tile = lambda b, k: rng.choice(np.arange(*tiles[b]), replace=False,
+                                      size=min(k, tiles[b][1] - tiles[b][0]))
+    b_cut = max(1, grid // 2)
+    cases = [(f"random_{k}", spiked_with(k), budget) for k in (0, 31, 256,
+                                                                 300)] + [
+        ("one_at_N-1", spiked_at([N - 1]), budget),
+        ("tile_edges", spiked_at([i for lo, hi in tiles if hi > lo
+                                  for i in (lo, hi - 1)]), 512),
+        ("200_in_one_tile", spiked_at(in_tile(min(7, grid - 1), 200)),
+         budget),
+        ("cut_inside_tile", spiked_at(np.concatenate([
+            rng.choice(tiles[b_cut][0], size=min(150, tiles[b_cut][0]),
+                       replace=False), in_tile(b_cut, 200)])), budget),
+        ("burst_5000", spiked_with(min(5000, N // 2)), 8192)]
+    for case, spk, bud in cases:
+        k = int(spk.sum())
         ring = ring0()
         r_k, ids_k, ovf_k = K2.ell_deliver(ring.clone(), *tbl, spk, t_step,
-                                           c.n_exc, budget)
+                                           c.n_exc, bud)
         r_p, ids_p, ovf_p = K2.ell_deliver_plain(ring.clone(), *tbl, spk,
-                                                 t_step, c.n_exc, budget)
+                                                 t_step, c.n_exc, bud)
         torch.cuda.synchronize()
         if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
-            fail(f"K2 ids/overflow differ at {k} spikes")
+            fail(f"K2 ids/overflow differ in case {case}")
         err = float((r_k - r_p).abs().max())
         if not torch.allclose(r_k, r_p, rtol=RING_RTOL, atol=RING_ATOL):
-            fail(f"K2 ring differs at {k} spikes: max |diff| {err}")
+            fail(f"K2 ring differs in case {case}: max |diff| {err}")
         max_err["ell_deliver"] = max(max_err["ell_deliver"], err)
+        del r_k, r_p
 
         out_k = K3.lif_deliver(ring.clone(), *tbl, spk, *state_in, ext_ex,
-                               i_dc, t_step, n_exc=c.n_exc, budget=budget,
+                               i_dc, t_step, n_exc=c.n_exc, budget=bud,
                                prop=prop)
         out_p = K3.lif_deliver_plain(ring.clone(), *tbl, spk, *state_in,
                                      ext_ex, i_dc, t_step, n_exc=c.n_exc,
-                                     budget=budget, prop=prop)
+                                     budget=bud, prop=prop)
         torch.cuda.synchronize()
         names = ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
                  "overflow")
@@ -788,16 +823,44 @@ def main() -> None:
             if name in ("ring", "I_ex", "I_in"):
                 errs[name] = float((a - b).abs().max())
                 if not torch.allclose(a, b, rtol=RING_RTOL, atol=RING_ATOL):
-                    fail(f"K3 {name} differs at {k} spikes: max |diff| "
+                    fail(f"K3 {name} differs in case {case}: max |diff| "
                          f"{errs[name]}")
             elif not torch.equal(a, b):
-                fail(f"K3 {name} differs from the plain version at {k} "
-                     f"spikes")
+                fail(f"K3 {name} differs from the plain version in case "
+                     f"{case}")
         max_err["lif_deliver"] = max(max_err["lif_deliver"], *errs.values())
-        say("K2+K3", spikes=k, budget=budget, overflow=int(ovf_k),
+        say("K2+K3", case=case, spikes=k, budget=bud, overflow=int(ovf_k),
             ids_exact=True, K2_ring_max_abs_err=err,
             K3_max_abs_err=json.dumps(errs))
-    del r_k, r_p, out_k, out_p
+        del out_k, out_p
+
+    # 2,000 launches of K3 back to back on one workspace, at spike counts
+    # that change from launch to launch: each launch's ids and overflow
+    # against compact_ids_plain, and the workspace's launch count advanced
+    # by the kernel alone
+    pool = [spiked_with(k) for k in (0, 1, 3, 25, 31, 100, 255, 256, 257,
+                                     300, 600, 2)]
+    want_ids = [compact_ids_plain(x, budget) for x in pool]
+    ws = K3.workspace(dev, grid)
+    ws0 = int(ws[0])
+    ring = ring0()
+    got = [K3.lif_deliver(ring, *tbl, pool[i % len(pool)], *state_in, ext_ex,
+                          i_dc, t_step + i, n_exc=c.n_exc, budget=budget,
+                          prop=prop)[6:] for i in range(2000)]
+    torch.cuda.synchronize()
+    for i, (ids_k, ovf_k) in enumerate(got):
+        ids_p, ovf_p = want_ids[i % len(pool)]
+        if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
+            fail(f"K3's launch {i} of 2,000 back to back: ids or overflow "
+                 f"differ from compact_ids_plain")
+    advanced = int(ws[0]) - ws0
+    if advanced != 2000:
+        fail(f"K3's launch count advanced by {advanced} over 2,000 "
+             f"launches")
+    say("K3_sequence", launches=2000, ids_overflow_exact=True,
+        spike_counts=json.dumps([int(x.sum()) for x in pool]),
+        launch_count_advanced=advanced)
+    del got, pool, want_ids
 
     # -- 3b. K4 and stdp_update on the same tables ---------------------------
     torch.cuda.synchronize()
@@ -821,13 +884,13 @@ def main() -> None:
         k_in=ptab.in_syn_idx.shape[1], plastic_synapses=n_plastic_syn,
         weights_above_w_max=w_over, coef=json.dumps(coef._asdict()))
     traces = lambda: on(rng.uniform(0, 3, N).astype(np.float32))
-    for k in (0, 31, 256, 300):
-        spk = spiked_with(k)
+    for case, spk, bud in cases:
+        k = int(spk.sum())
         ring = ring0()
         x_pre, x_post = traces(), traces()
         w_k, w_p = w_base.clone(), w_base.clone()
         k4_in = (spk, *state_in, ext_ex, i_dc, x_pre, x_post, t_step)
-        k4_kw = dict(n_exc=c.n_exc, budget=budget, prop=prop, coef=coef)
+        k4_kw = dict(n_exc=c.n_exc, budget=bud, prop=prop, coef=coef)
         out_k = K3.lif_deliver_plastic(ring.clone(), tables.targets, w_k,
                                        tables.dbins, pmask, *k4_in, **k4_kw)
         out_p = K3.lif_deliver_plastic_plain(
@@ -841,15 +904,20 @@ def main() -> None:
             if name in ("ring", "I_ex", "I_in"):
                 errs[name] = float((a - b).abs().max())
                 if not torch.allclose(a, b, rtol=RING_RTOL, atol=RING_ATOL):
-                    fail(f"K4 {name} differs at {k} spikes: max |diff| "
+                    fail(f"K4 {name} differs in case {case}: max |diff| "
                          f"{errs[name]}")
             elif not bitwise(a, b):
-                fail(f"K4 {name} differs from the plain version at {k} "
-                     f"spikes")
+                fail(f"K4 {name} differs from the plain version in case "
+                     f"{case}")
         max_err["lif_deliver_plastic"] = max(
             max_err["lif_deliver_plastic"], *errs.values())
         ids = out_k[9]
         n_depressed = int((w_k != w_base).sum())
+        say("K4", case=case, spikes=k, budget=bud, overflow=int(out_k[10]),
+            exact=json.dumps([m for m in names if m not in errs]),
+            weights_depressed=n_depressed, max_abs_err=json.dumps(errs))
+        if not case.startswith("random_"):
+            continue
         for full in (False, True):
             for clip_all in (False, True):
                 w_k, w_p = w_base.clone(), w_base.clone()
@@ -871,9 +939,6 @@ def main() -> None:
                 changed = int((w_k != w_base).sum())
                 say("stdp_update", spikes=k, full=full, clip_all=clip_all,
                     bitwise=True, weights_changed=changed)
-        say("K4", spikes=k, budget=budget, overflow=int(out_k[10]),
-            exact=json.dumps([m for m in names if m not in errs]),
-            weights_depressed=n_depressed, max_abs_err=json.dumps(errs))
     del tables, tbl, ring, out_k, out_p, w_k, w_p, w_base, ptab, pmask, got
     del want, stdp_in
     torch.cuda.empty_cache()
@@ -1103,11 +1168,10 @@ def main() -> None:
             r, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
             prop=prop, **kw)
 
-    def stamps_of(launch, plastic):
-        g = K3.cooperative_grid(dev, N + 1, plastic)
+    def stamps_of(launch):
         for i in range(3):
-            launch(i, stamps=K3.stamped_launch(g, dev))
-        bufs = [K3.stamped_launch(g, dev) for _ in range(64)]
+            launch(i, stamps=K3.stamps_buffer(dev, N + 1))
+        bufs = [K3.stamps_buffer(dev, N + 1) for _ in range(64)]
         for i, b in enumerate(bufs):
             launch(i, stamps=b)
         torch.cuda.synchronize()
@@ -1124,7 +1188,7 @@ def main() -> None:
         return compare
 
     say("K3_phases", spikes=spikes_per_step, launches=64,
-        us_median_mean_max=json.dumps(stamps_of(k3_on(ring), False)))
+        us_median_mean_max=json.dumps(stamps_of(k3_on(ring))))
     ring_g = ring0()
     ring_e = ring_g.clone()
     k3_on(ring_e.clone())(0)             # warm-up outside the capture
@@ -1160,7 +1224,7 @@ def main() -> None:
             *k4_state, **k4_kw, **kw)
 
     say("K4_phases", spikes=spikes_pl, launches=64,
-        us_median_mean_max=json.dumps(stamps_of(k4_on(ring, w_t), True)))
+        us_median_mean_max=json.dumps(stamps_of(k4_on(ring, w_t))))
     ring_g, w_g = ring0(), w_t.clone()
     ring_e, w_e = ring_g.clone(), w_t.clone()
     k4_on(ring_e.clone(), w_t)(0)        # warm-up outside the capture

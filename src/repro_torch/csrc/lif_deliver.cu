@@ -11,21 +11,45 @@
 //
 // On the TPU the grid runs in order on one core, so the LIF update can
 // simply be the last grid row.  Hopper's blocks run in parallel and in no
-// order, so the phases are separated by grid-wide barriers: the kernel is
-// launched cooperatively (cudaLaunchCooperativeKernel) with a grid no
-// larger than the co-resident block count, and cg::this_grid().sync()
-// orders
-//   1. ordered compaction of spiked_prev: count per tile | sync |
-//      ranked ids, fill, overflow                              | sync |
-//   2. scatter of the real ids' rows at phase t_prev; K4 writes each
-//      plastic entry back depressed, w + (-(dep_coef * x_post[target])),
-//      after scattering the weight it read                     | sync |
+// order.  Here one block of kBlock threads runs on each SM (the grid is
+// sized for the card, not for N), launched cooperatively so that every
+// block is resident and cg::this_grid().sync() can order the phases:
+//   1. ordered compaction of spiked_prev in one pass: the neurons are cut
+//      into one tile per block; a block counts its tile, publishes the
+//      count, and finds the spikes before its tile by decoupled look-back
+//      (its first warp reads its predecessors' published words, up to
+//      kLookBack windows of 32 at once, back to the nearest one that holds
+//      an inclusive prefix), then publishes its own inclusive prefix and
+//      writes its spikes' ids at their ranks below `budget`;  | sync |
+//   2. the fill (ids[total:budget] = N), the overflow, and the scatter of
+//      the real ids' rows at phase t_prev: the flat n_real x k_pad entry
+//      space is strided evenly over every thread of the grid, each thread
+//      loading kUnroll entries before it adds any (float atomics into the
+//      ring); K4 writes each plastic entry back depressed,
+//      w + (-(dep_coef * x_post[target])), after scattering the weight it
+//      read;                                                  | sync |
 //   3. LIF update of every neuron against slot (t_prev+1) % D, zeroing
 //      both channel rows of that slot (the dump column included), and
 //      the new spike vector; K4 also decays the pair-STDP traces and bumps
 //      them with spiked_prev (x * decay + spike) into NEW buffers: the
 //      depression above read the old x_post, and the potentiation that
 //      follows (stdp_update.cu) reads the old x_pre.
+// The second sync is the one the semantics need: entries with dbin = 1
+// land in the slot that the LIF pass reads and zeroes.  The first one
+// feeds the even split, which needs every block's ids.  (A hand-written
+// barrier, one counter by red.release / ld.acquire, measured no faster
+// than grid.sync() on an H100; PERF.md.)
+//
+// The look-back words live in a workspace that persists across launches
+// (the wrapper keeps one per device and grid, zeroed once): [0] the launch
+// count (the epoch), [1 + b] block b's word,
+// (epoch tag << 2 | kind) << 32 | value.  Every word read is checked
+// against this launch's epoch, so no pass resets them; the kernel itself
+// advances the epoch after its last sync, never the host, so a replayed
+// CUDA graph stays right.  The look-back's spin counts its rounds and
+// traps past kSpinLimit, so a fault ends as a CUDA error that the wrapper
+// raises rather than as a hang.
+//
 // There is no VMEM-style residency cap: the ring ([D, 2, N+1] f32, 28 MB
 // at full scale) is updated in place in device memory and stays in L2,
 // and K4's weights are the live table itself, updated in place (each entry
@@ -34,8 +58,10 @@
 // wrote.  Bound: K1's 45 B per neuron, the consumed slot, and K2's
 // spiking rows (about 6.4 MB per step at full scale); K4 adds the rows'
 // plastic mask, the depressed entries' write-back and 20 B of traces per
-// neuron; memory-bound.  If the card refuses the cooperative launch the
-// wrapper raises; it never falls back to K2 + K1.
+// neuron; memory-bound.  At 25 spikes a step the time is not the bytes
+// but a chain of memory round trips and the two syncs (PERF.md's phase
+// table).  If the card refuses the cooperative launch the wrapper raises;
+// it never falls back to K2 + K1.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -46,38 +72,34 @@ namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kBlock = 512;
-// %globaltimer stamps a block: start, the end of each phase and barrier
+constexpr int kBlock = 1024;
+constexpr int kWarps = kBlock / 32;
+constexpr int kUnroll = 4;            // scatter entries a thread has in flight
+constexpr int kLookBack = 5;          // look-back windows of 32 a round
+// ring columns a block takes at least: a smaller network gets fewer
+// blocks, since more would only add arrivals at each sync
+constexpr int kMinColumns = 256;
+// look-back rounds before a trap: seconds, at one L2 round trip a round
+constexpr long long kSpinLimit = 1ll << 22;
+// %globaltimer stamps a block of the stamped launches: its start, and the
+// end of each of PHASES in kernels/lif_deliver.py
 constexpr int kStamps = 8;
+constexpr unsigned kAggregate = 1, kPrefix = 2;   // a look-back word's kind
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Stamp k of this block, once its threads are all past the point.
-template <bool kOn>
-__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
-  if constexpr (kOn) {
-    __syncthreads();
-    if (threadIdx.x == 0) s[blockIdx.x * kStamps + k] = global_ns();
-  }
-}
-
-struct PlasticArgs {                  // K4 only
-  Depression dep;                     // weights = the live table
-  const float* x_pre;                 // [N] traces before this step
-  float* x_pre_o;                     // [N] new buffers
-  float* x_post_o;
-  float decay_p, decay_m;
-  int trace;   // 0 in the rotated loop's first step: no spikes were
-               // delivered, and the traces must not decay an extra step
+struct StepConst {                    // the same for every step of a session
+  const int* targets;                 // [N+1, k_pad], sentinel target N
+  float* weights;                     // [N+1, k_pad]; K4: the live table
+  const int* dbins;                   // [N+1, k_pad], >= 1
+  const unsigned char* pmask;         // K4: [N+1, k_pad] plastic entries
+  unsigned long long* ws;             // [1 + grid] workspace (see above)
+  int k_pad, n, n_exc, d_bins, budget, grid;
+  LifProp p;
+  float dep_coef, decay_p, decay_m;   // K4's pair-STDP immediates
 };
 
-struct StepArgs {
+struct StepIO {                       // this step's tensors
   const unsigned char* spiked_prev;   // [N]
-  EllTables tb;
   float* ring;                        // [D, 2, N+1], updated in place
   const float* V;
   const float* I_ex;
@@ -90,101 +112,275 @@ struct StepArgs {
   float* Iino;
   int* refo;
   unsigned char* spk;                 // [N] this step's spikes
-  int* counts;                        // [gridDim.x] scratch
   int* ids;                           // [budget] delivered ids
   int* overflow;                      // [1] budget excess of spiked_prev
+  const float* x_pre;                 // K4: [N] traces before this step
+  const float* x_post;
+  float* x_pre_o;                     // K4: [N] new buffers
+  float* x_post_o;
   unsigned long long* stamps;         // [grid, kStamps], stamped launches
-  int n, n_exc, d_bins, budget, t_prev;
-  LifProp p;
-  PlasticArgs pl;
+  int t_prev;
+  int trace;   // K4: 0 in the rotated loop's first step: no spikes were
+               // delivered, and the traces must not decay an extra step
 };
 
-template <bool kPlastic, bool kStamped = false>
-__global__ void __launch_bounds__(kBlock) lif_deliver_kernel(StepArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  __shared__ int smem[32];
-  const int n_cols = a.n + 1;
-  stamp<kStamped>(a.stamps, 0);
+struct StepArgs {
+  StepConst k;
+  StepIO io;
+};
 
-  // 1. ordered compaction of the previous step's spikes
-  const int n_tiles = static_cast<int>(gridDim.x);
-  const int tile = (a.n + n_tiles - 1) / n_tiles;
-  const int lo = min(static_cast<int>(blockIdx.x) * tile, a.n);
-  const int hi = min(lo + tile, a.n);
-  const int c = tile_count(a.spiked_prev, lo, hi, smem);
-  if (threadIdx.x == 0) a.counts[blockIdx.x] = c;
-  stamp<kStamped>(a.stamps, 1);
-  grid.sync();
-  stamp<kStamped>(a.stamps, 2);
-  int total;
-  const int rank = tiles_before(a.counts, static_cast<int>(blockIdx.x),
-                                static_cast<int>(gridDim.x), smem, &total);
-  if (rank < a.budget)
-    tile_write(a.spiked_prev, lo, hi, rank, a.ids, a.budget, smem);
-  compact_tail(total, a.ids, a.budget, a.n, a.overflow);
-  stamp<kStamped>(a.stamps, 3);
-  grid.sync();
-  stamp<kStamped>(a.stamps, 4);
+// One neuron's inputs to the LIF pass, other than its ring slot, loaded
+// together before any of its outputs is stored.
+struct Neuron {
+  float V, I_ex, I_in, ext_ex, i_dc, x_pre, x_post;
+  int refrac;
+  unsigned char spiked_prev;
+};
 
-  // 2. scatter: (id, chunk) work items of the real ids only
-  const int n_real = min(total, a.budget);
-  const int chunks = (a.tb.k_pad + kScatterChunk - 1) / kScatterChunk;
-  for (int w = blockIdx.x; w < n_real * chunks; w += gridDim.x) {
-    const int s = w / chunks, j0 = (w % chunks) * kScatterChunk;
-    scatter_chunk<kPlastic>(a.tb, a.ids[s], j0,
-                            min(j0 + kScatterChunk, a.tb.k_pad), a.ring,
-                            a.t_prev, a.d_bins, n_cols, a.n_exc, a.pl.dep);
+template <bool kPlastic>
+__device__ __forceinline__ Neuron load_neuron(const StepIO& io, int i) {
+  Neuron x;
+  x.V = io.V[i];
+  x.I_ex = io.I_ex[i];
+  x.I_in = io.I_in[i];
+  x.ext_ex = io.ext_ex[i];
+  x.i_dc = io.i_dc[i];
+  x.refrac = io.refrac[i];
+  if (kPlastic && io.trace) {
+    x.spiked_prev = io.spiked_prev[i];
+    x.x_pre = io.x_pre[i];
+    x.x_post = io.x_post[i];
   }
-  stamp<kStamped>(a.stamps, 5);
+  return x;
+}
+
+__device__ __forceinline__ unsigned long long ld_relaxed(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_relaxed(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Stamp k of this block, once all its threads are past the point.
+template <bool kOn>
+__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
+  if constexpr (kOn) {
+    __syncthreads();
+    if (threadIdx.x == 0) s[blockIdx.x * kStamps + k] = global_ns();
+  }
+}
+
+__device__ __forceinline__ unsigned long long word(unsigned tag,
+                                                   unsigned kind, int v) {
+  return (static_cast<unsigned long long>(tag << 2 | kind) << 32) |
+         static_cast<unsigned>(v);
+}
+
+__device__ __forceinline__ int warp_inclusive_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  return x;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  return x;
+}
+
+// This block's first rank: the spikes of the tiles before it, by
+// decoupled look-back over the words of blocks b-1, b-2, ...  Run by one
+// warp.  Each round loads kLookBack windows of 32 words at once (lane l of
+// window r reads block j - 32 r - l), then takes them nearest first up to
+// the nearest inclusive prefix; a window with a word not yet published
+// ends the round, and the next round starts at that window.
+__device__ __forceinline__ int look_back(const unsigned long long* words,
+                                         int b, unsigned tag) {
+  const int lane = threadIdx.x & 31;
+  int before = 0;
+  long long spins = 0;
+  for (int j = b - 1; j >= 0;) {
+    unsigned long long w[kLookBack];
+#pragma unroll
+    for (int r = 0; r < kLookBack; ++r) {
+      const int idx = j - 32 * r - lane;
+      w[r] = idx >= 0 ? ld_relaxed(words + idx) : word(tag, kPrefix, 0);
+    }
+    bool found = false;
+#pragma unroll
+    for (int r = 0; r < kLookBack; ++r) {
+      const unsigned head = static_cast<unsigned>(w[r] >> 32);
+      if (__any_sync(kFull, (head >> 2) != tag || (head & 3u) == 0)) break;
+      const unsigned prefix = __ballot_sync(kFull, (head & 3u) == kPrefix);
+      const int stop = prefix ? __ffs(prefix) - 1 : 31;
+      before += warp_sum(lane <= stop ? static_cast<int>(w[r] & 0xffffffffu)
+                                      : 0);
+      found = prefix != 0;
+      if (found) break;
+      j -= 32;
+    }
+    if (found) break;
+    if (++spins > kSpinLimit) __trap();
+  }
+  return before;
+}
+
+template <bool kPlastic, bool kStamped>
+__global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
+  const StepConst& k = a.k;
+  const StepIO& io = a.io;
+  __shared__ int warp_total[kWarps];
+  __shared__ int tile_first;          // this tile's first rank
+  __shared__ unsigned long long launch_no;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x, G = gridDim.x;
+  const int n = k.n, n_cols = n + 1;
+  unsigned long long* words = k.ws + 1;
+  cg::grid_group grid = cg::this_grid();
+  const int g = b * kBlock + threadIdx.x, threads = G * kBlock;
+  stamp<kStamped>(io.stamps, 0);
+  if (threadIdx.x == 0) launch_no = ld_relaxed(k.ws);
+
+
+  // 1. ordered compaction.  Tile b is [lo, hi); each thread counts a
+  // contiguous run of it, so that ranks follow neuron order.
+  const int tile = (n + G - 1) / G;
+  const int lo = min(b * tile, n), hi = min(lo + tile, n);
+  const int per = (tile + kBlock - 1) / kBlock;
+  const int r0 = min(lo + static_cast<int>(threadIdx.x) * per, hi);
+  const int r1 = min(r0 + per, hi);
+  int c = 0;
+  for (int i = r0; i < r1; ++i) c += io.spiked_prev[i] != 0;
+  const int incl = warp_inclusive_scan(c);
+  if (lane == 31) warp_total[warp] = incl;
+  __syncthreads();
+  const int wt = lane < kWarps ? warp_total[lane] : 0;
+  const int wincl = warp_inclusive_scan(wt);
+  const int in_tile = __shfl_sync(kFull, wincl - wt, warp) + incl - c;
+  const int count = __shfl_sync(kFull, wincl, 31);
+  const unsigned tag = static_cast<unsigned>(launch_no) & 0x3fffffffu;
+  stamp<kStamped>(io.stamps, 1);
+  if (warp == 0) {
+    if (lane == 0)
+      st_relaxed(words + b, word(tag, b == 0 ? kPrefix : kAggregate, count));
+    const int before = look_back(words, b, tag);
+    if (lane == 0) {
+      if (b > 0) st_relaxed(words + b, word(tag, kPrefix, before + count));
+      tile_first = before;
+    }
+  }
+  __syncthreads();
+  stamp<kStamped>(io.stamps, 2);
+  int rank = tile_first + in_tile;
+  for (int i = r0; i < r1 && rank < k.budget; ++i)
+    if (io.spiked_prev[i]) io.ids[rank++] = i;
+  stamp<kStamped>(io.stamps, 3);
   grid.sync();
-  stamp<kStamped>(a.stamps, 6);
+  stamp<kStamped>(io.stamps, 4);
+
+  // 2. the fill, the overflow and the scatter, split by entries
+  const int total = static_cast<int>(ld_relaxed(words + G - 1) & 0xffffffffu);
+  const int n_real = min(total, k.budget);
+  for (int p = total + g; p < k.budget; p += threads) io.ids[p] = n;
+  if (g == 0) *io.overflow = max(total - k.budget, 0);
+  const int n_entries = n_real * k.k_pad;   // < 2^30 (the wrapper checks)
+  for (int e0 = g; e0 < n_entries; e0 += kUnroll * threads) {
+    int tg[kUnroll], bin[kUnroll], ch[kUnroll];
+    float w[kUnroll], xq[kUnroll];
+    bool pm[kUnroll];
+    size_t at[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int e = e0 + u * threads;
+      tg[u] = n;
+      pm[u] = false;
+      if (e < n_entries) {
+        const int s = e / k.k_pad;
+        const int sid = io.ids[s];
+        at[u] = static_cast<size_t>(sid) * k.k_pad + (e - s * k.k_pad);
+        ch[u] = sid >= k.n_exc ? 1 : 0;
+        tg[u] = k.targets[at[u]];
+        bin[u] = k.dbins[at[u]];
+        w[u] = k.weights[at[u]];
+        if constexpr (kPlastic) pm[u] = k.pmask[at[u]] != 0;
+      }
+    }
+    if constexpr (kPlastic) {
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+        if (pm[u] && tg[u] < n) xq[u] = io.x_post[tg[u]];
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (tg[u] >= n) continue;       // padding (weight 0), or no entry
+      const int slot = (io.t_prev + bin[u]) % k.d_bins;
+      atomicAdd(io.ring + (static_cast<size_t>(slot) * 2 + ch[u]) * n_cols +
+                    tg[u],
+                w[u]);
+      if constexpr (kPlastic) {
+        if (pm[u]) k.weights[at[u]] = stdp_depressed(w[u], k.dep_coef, xq[u]);
+      }
+    }
+  }
+  stamp<kStamped>(io.stamps, 5);
+  grid.sync();
+  stamp<kStamped>(io.stamps, 6);
+  // every block read the epoch before its first grid.sync()
+  if (g == 0) k.ws[0] = launch_no + 1;
 
   // 3. LIF update against the just-delivered slot, which it then consumes
-  const int slot = (a.t_prev + 1) % a.d_bins;
-  float* row_ex = a.ring + static_cast<size_t>(slot) * 2 * n_cols;
+  const int slot = (io.t_prev + 1) % k.d_bins;
+  float* row_ex = io.ring + static_cast<size_t>(slot) * 2 * n_cols;
   float* row_in = row_ex + n_cols;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n_cols;
-       i += gridDim.x * blockDim.x) {
-    if (i < a.n) {
-      const float in_ex = __fadd_rn(row_ex[i], a.ext_ex[i]);
-      lif_neuron(a.p, a.V[i], a.I_ex[i], a.I_in[i], a.refrac[i], in_ex,
-                 row_in[i], a.i_dc[i], a.Vo + i, a.Iexo + i, a.Iino + i,
-                 a.refo + i, a.spk + i);
-      if (kPlastic && a.pl.trace) {
-        const unsigned char sp = a.spiked_prev[i];
-        a.pl.x_pre_o[i] = stdp_trace(a.pl.x_pre[i], a.pl.decay_p, sp);
-        a.pl.x_post_o[i] = stdp_trace(a.pl.dep.x_post[i], a.pl.decay_m, sp);
+  for (int i = g; i < n_cols; i += threads) {
+    if (i < n) {
+      const Neuron x = load_neuron<kPlastic>(io, i);
+      lif_neuron(k.p, x.V, x.I_ex, x.I_in, x.refrac,
+                 __fadd_rn(row_ex[i], x.ext_ex), row_in[i], x.i_dc,
+                 io.Vo + i, io.Iexo + i, io.Iino + i, io.refo + i,
+                 io.spk + i);
+      if (kPlastic && io.trace) {
+        io.x_pre_o[i] = stdp_trace(x.x_pre, k.decay_p, x.spiked_prev);
+        io.x_post_o[i] = stdp_trace(x.x_post, k.decay_m, x.spiked_prev);
       }
     }
     row_ex[i] = 0.0f;
     row_in[i] = 0.0f;
   }
-  stamp<kStamped>(a.stamps, 7);
+  stamp<kStamped>(io.stamps, 7);
 }
 
-template <bool kPlastic>
-int cooperative_grid(int n_cols, int* grid_out) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return -1;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, lif_deliver_kernel<kPlastic>, kBlock, 0);
-  const int want = (n_cols + kBlock - 1) / kBlock;
-  *grid_out = std::min(per_sm * sms, want);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kPlastic>
-int launch(StepArgs& a, int grid, void* stream) {
-  void* args[] = {&a};
-  void* fn = a.stamps
-      ? reinterpret_cast<void*>(lif_deliver_kernel<kPlastic, true>)
-      : reinterpret_cast<void*>(lif_deliver_kernel<kPlastic>);
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      fn, dim3(grid),
-      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream));
+template <bool kPlastic, bool kStamped>
+int launch(const StepConst* k, const StepIO& io, void* stream) {
+  StepArgs a{*k, io};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(k->grid);
+  cfg.blockDim = dim3(kBlock);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute coop[1];
+  coop[0].id = cudaLaunchAttributeCooperative;
+  coop[0].val.cooperative = 1;
+  cfg.attrs = coop;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, lif_deliver_kernel<kPlastic, kStamped>, a);
   // cudaGetLastError() also clears a refused launch's error, so the next
   // launch does not report it as its own.
   const cudaError_t last = cudaGetLastError();
@@ -193,51 +389,88 @@ int launch(StepArgs& a, int grid, void* stream) {
 
 }  // namespace
 
-// Stamps a block of the stamped launches (stamps != null): K3's and K4's
-// phase boundaries by %globaltimer, for chip_smoke.py's phase table.
+// The grid of K3 and K4 on this card: one block per SM (fewer when the
+// ring has fewer than kMinColumns columns per SM).  Returns -1 when the card
+// has no cooperative launch, -2 when a block does not fit on an SM.
+EXPORT int lif_deliver_grid(int n_cols, int* grid_out) {
+  int dev = 0, coop = 0, sms = 0, fit = 0, fit_pl = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return -1;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &fit, lif_deliver_kernel<false, true>, kBlock, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &fit_pl, lif_deliver_kernel<true, true>, kBlock, 0);
+  if (std::min(fit, fit_pl) < 1) return -2;
+  *grid_out = std::min(sms, (n_cols + kMinColumns - 1) / kMinColumns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sizeof(StepConst), which the wrapper's ctypes mirror must equal; the
+// workspace's words for `grid` blocks; the stamps a block writes.
+EXPORT int lif_deliver_const_bytes() { return sizeof(StepConst); }
+EXPORT int lif_deliver_workspace_words(int grid) { return 1 + grid; }
 EXPORT int lif_deliver_stamps() { return kStamps; }
 
-// The cooperative grid of K3 (plastic = 0) or K4 for this card:
-// co-resident blocks per SM x SMs, capped at one block per kBlock ring
-// columns.  Returns -1 when the card has no cooperative launch.
-EXPORT int lif_deliver_grid(int n_cols, int plastic, int* grid_out) {
-  return plastic ? cooperative_grid<true>(n_cols, grid_out)
-                 : cooperative_grid<false>(n_cols, grid_out);
-}
-
-#define STEP_PARAMS                                                         \
-  const unsigned char *spiked_prev, const int *targets, float *weights,     \
-      const int *dbins, int k_pad, float *ring, const float *V,             \
+#define STEP_IO_PARAMS                                                      \
+  const unsigned char *spiked_prev, float *ring, const float *V,            \
       const float *I_ex, const float *I_in, const int *refrac,              \
       const float *ext_ex, const float *i_dc, float *Vo, float *Iexo,       \
-      float *Iino, int *refo, unsigned char *spk, int *counts, int *ids,    \
-      int *overflow, int n, int n_exc, int d_bins, int budget, int t_prev,  \
-      float P11_ex, float P11_in, float P22, float P21_ex, float P21_in,    \
-      float P20, float V_th, float V_reset, float E_L, int ref_steps,       \
-      int grid, unsigned long long *stamps
+      float *Iino, int *refo, unsigned char *spk, int *ids, int *overflow,  \
+      int t_prev
 
-#define STEP_ARGS                                                           \
-  StepArgs a{spiked_prev, EllTables{targets, weights, dbins, k_pad},        \
-             ring, V, I_ex, I_in, refrac, ext_ex, i_dc, Vo, Iexo, Iino,     \
-             refo, spk, counts, ids, overflow, stamps, n, n_exc, d_bins,    \
-             budget, t_prev,                                                \
-             LifProp{P11_ex, P11_in, P22, P21_ex, P21_in, P20, V_th,        \
-                     V_reset, E_L, ref_steps}}
+#define STEP_IO                                                             \
+  StepIO io{spiked_prev, ring, V,    I_ex,    I_in,     refrac,  ext_ex,    \
+            i_dc,        Vo,   Iexo, Iino,    refo,     spk,     ids,       \
+            overflow,    nullptr, nullptr, nullptr, nullptr, nullptr,       \
+            t_prev,      0}
 
-EXPORT int lif_deliver_launch(STEP_PARAMS, void* stream) {
-  STEP_ARGS;
-  return launch<false>(a, grid, stream);
+#define PLASTIC_PARAMS                                                      \
+  const float *x_pre, const float *x_post, float *x_pre_o, float *x_post_o, \
+      int trace
+
+#define PLASTIC_IO                                                          \
+  io.x_pre = x_pre;                                                         \
+  io.x_post = x_post;                                                       \
+  io.x_pre_o = x_pre_o;                                                     \
+  io.x_post_o = x_post_o;                                                   \
+  io.trace = trace
+
+// K3.  `k` is the session's constant pack (tables, sizes, propagators,
+// grid, workspace), built once by the wrapper.
+EXPORT int lif_deliver_launch(const StepConst* k, STEP_IO_PARAMS,
+                              void* stream) {
+  STEP_IO;
+  return launch<false, false>(k, io, stream);
 }
 
-// K4: K3's arguments (weights: the live table, updated in place), then the
-// plastic mask, the traces before the step, their new buffers and the
-// pair-STDP immediates.
-EXPORT int lif_deliver_plastic_launch(
-    STEP_PARAMS, const unsigned char* pmask, const float* x_pre,
-    const float* x_post, float* x_pre_o, float* x_post_o, float dep_coef,
-    float decay_p, float decay_m, int trace, void* stream) {
-  STEP_ARGS;
-  a.pl = PlasticArgs{Depression{weights, pmask, x_post, dep_coef}, x_pre,
-                     x_pre_o, x_post_o, decay_p, decay_m, trace};
-  return launch<true>(a, grid, stream);
+// K4: K3's arguments (k->weights: the live table, updated in place), then
+// the traces before the step, their new buffers and whether to update them.
+EXPORT int lif_deliver_plastic_launch(const StepConst* k, STEP_IO_PARAMS,
+                                      PLASTIC_PARAMS, void* stream) {
+  STEP_IO;
+  PLASTIC_IO;
+  return launch<true, false>(k, io, stream);
+}
+
+// The stamped instantiations, for chip_smoke.py's phase table: as above,
+// and each block writes its kStamps %globaltimer stamps into
+// stamps[blockIdx.x * kStamps ...].
+EXPORT int lif_deliver_stamped_launch(const StepConst* k, STEP_IO_PARAMS,
+                                      unsigned long long* stamps,
+                                      void* stream) {
+  STEP_IO;
+  io.stamps = stamps;
+  return launch<false, true>(k, io, stream);
+}
+
+EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
+                                              STEP_IO_PARAMS, PLASTIC_PARAMS,
+                                              unsigned long long* stamps,
+                                              void* stream) {
+  STEP_IO;
+  PLASTIC_IO;
+  io.stamps = stamps;
+  return launch<true, true>(k, io, stream);
 }

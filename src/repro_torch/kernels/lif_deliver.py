@@ -18,16 +18,22 @@ With ``trace=False`` (the rotated loop's first step, which delivers no
 spikes) the traces pass through: the reference's fused loop decays them one
 extra step there.
 
-On the card each step is one cooperative launch with grid-wide barriers
-between compaction, scatter and LIF update (see the source).  The grid is
-the card's co-resident block count, asked once per device, network size
-and kernel at the first call; a card without cooperative launch makes the
-wrapper raise -- it never falls back to K2 + K1.  The ring is updated in
-place.
+On the card each step is one cooperative launch of one block per SM:
+a single-pass compaction by decoupled look-back, a grid sync, the scatter
+split evenly by entries, a grid sync, the LIF update (see the source).  The
+grid is asked once per device and network size; a card without
+cooperative launch makes the wrapper raise -- it never falls back to K2 +
+K1.  The ring is updated in place.  What stays the same from step to step
+is built once: the C argument pack of the tables, sizes, propagators and
+grid (``StepConst``, cached by its inputs), and the kernel's workspace
+(the look-back words and the launch count that tags them, one per device
+and grid, zeroed once and advanced by the kernel itself, so that a launch
+captured in a CUDA graph replays right).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -35,15 +41,16 @@ from repro_torch.core.neuron import Propagators
 from repro_torch.kernels import _build
 from repro_torch.kernels.ell_deliver import (_check_inputs,
                                              ell_deliver_plain)
-from repro_torch.kernels.lif_update import lif_update_plain, prop_args
+from repro_torch.kernels.lif_update import lif_update_plain
 from repro_torch.kernels.stdp import StdpCoef, depress_plain, traces_plain
 
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 _grid: dict = {}
-#: what lies between a block's consecutive stamps (see ``stamped_launch``)
-PHASES = ("count", "barrier_1", "rank_write", "barrier_2", "scatter",
-          "barrier_3", "lif")
+_workspaces: dict = {}
+#: what lies between a block's consecutive stamps (``stamps_buffer``)
+PHASES = ("count", "look_back", "write_ids", "barrier_1", "scatter",
+          "barrier_2", "lif")
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
@@ -86,86 +93,174 @@ def lif_deliver_plastic_plain(ring, targets, weights, dbins, pmask,
             overflow)
 
 
-_STEP_ARGTYPES = ([_P] * 4 + [_I] + [_P] * 15 + [_I] * 5 + [_F] * 9
-                  + [_I, _I, _P])
+class StepConst(ctypes.Structure):
+    """``StepConst`` of ``csrc/lif_deliver.cu``: what stays the same from
+    step to step of a session, handed to the launch by pointer."""
+    _fields_ = [("targets", _P), ("weights", _P), ("dbins", _P),
+                ("pmask", _P), ("ws", _P), ("k_pad", _I), ("n", _I),
+                ("n_exc", _I), ("d_bins", _I), ("budget", _I),
+                ("grid", _I), ("P11_ex", _F), ("P11_in", _F), ("P22", _F),
+                ("P21_ex", _F), ("P21_in", _F), ("P20", _F), ("V_th", _F),
+                ("V_reset", _F), ("E_L", _F), ("ref_steps", _I),
+                ("dep_coef", _F), ("decay_p", _F), ("decay_m", _F)]
+
+
+def step_const(ptrs: tuple, sizes: tuple, prop: Propagators,
+               coef) -> StepConst:
+    """The pack of ``ptrs`` (targets, weights, dbins, pmask, workspace:
+    device addresses, 0 for none), ``sizes`` (k_pad, n, n_exc, d_bins,
+    budget, grid), the propagators and, for K4, the STDP coefficients."""
+    plastic = (coef.dep, coef.decay_p, coef.decay_m) if coef else (0, 0, 0)
+    return StepConst(*ptrs, *sizes, prop.P11_ex, prop.P11_in, prop.P22,
+                     prop.P21_ex, prop.P21_in, prop.P20, prop.V_th,
+                     prop.V_reset, prop.E_L, prop.ref_steps, *plastic)
+
+
+#: ``step_const`` cached by its inputs, all plain values, so that a hit is
+#: the pack those inputs build; the wrapper never writes into a pack
+cached_step_const = functools.lru_cache(maxsize=32)(step_const)
+
+
+def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
+                 d_bins: int, budget: int, grid: int, prop: Propagators,
+                 coef) -> StepConst:
+    """The cached pack of a session's tables (``pmask`` and ``coef`` None
+    for K3), workspace and sizes, as a launch takes it."""
+    return cached_step_const(
+        (targets.data_ptr(), weights.data_ptr(), dbins.data_ptr(),
+         0 if pmask is None else pmask.data_ptr(), ws.data_ptr()),
+        (targets.shape[1], n, n_exc, d_bins, budget, grid), prop, coef)
+
+_IO_ARGTYPES = [_P] + [_P] * 15 + [_I]          # pack, tensors, t_prev
+_PLASTIC_ARGTYPES = [_P] * 4 + [_I]             # traces in and out, trace
 
 
 def _lib():
     lib = _build.library("lif_deliver")
     if not getattr(lib, "_typed", False):
-        lib.lif_deliver_grid.restype = ctypes.c_int
-        lib.lif_deliver_grid.argtypes = [_I, _I, _P]
-        lib.lif_deliver_stamps.restype = ctypes.c_int
-        lib.lif_deliver_launch.restype = ctypes.c_int
-        lib.lif_deliver_launch.argtypes = _STEP_ARGTYPES + [_P]
-        lib.lif_deliver_plastic_launch.restype = ctypes.c_int
+        for fn in ("lif_deliver_grid", "lif_deliver_const_bytes",
+                   "lif_deliver_workspace_words", "lif_deliver_stamps",
+                   "lif_deliver_launch", "lif_deliver_plastic_launch",
+                   "lif_deliver_stamped_launch",
+                   "lif_deliver_plastic_stamped_launch"):
+            getattr(lib, fn).restype = ctypes.c_int
+        lib.lif_deliver_grid.argtypes = [_I, _P]
+        lib.lif_deliver_const_bytes.argtypes = []
+        lib.lif_deliver_workspace_words.argtypes = [_I]
+        lib.lif_deliver_stamps.argtypes = []
+        lib.lif_deliver_launch.argtypes = _IO_ARGTYPES + [_P]
         lib.lif_deliver_plastic_launch.argtypes = (
-            _STEP_ARGTYPES + [_P] * 5 + [_F] * 3 + [_I, _P])
+            _IO_ARGTYPES + _PLASTIC_ARGTYPES + [_P])
+        lib.lif_deliver_stamped_launch.argtypes = _IO_ARGTYPES + [_P, _P]
+        lib.lif_deliver_plastic_stamped_launch.argtypes = (
+            _IO_ARGTYPES + _PLASTIC_ARGTYPES + [_P, _P])
+        if lib.lif_deliver_const_bytes() != ctypes.sizeof(StepConst):
+            raise RuntimeError(
+                f"lif_deliver: the C StepConst has "
+                f"{lib.lif_deliver_const_bytes()} bytes, its ctypes mirror "
+                f"{ctypes.sizeof(StepConst)}")
         lib._typed = True
     return lib
 
 
-def cooperative_grid(device: torch.device, n_cols: int,
-                     plastic: bool = False) -> int:
-    """Blocks of the cooperative launch of K3 (or K4 with ``plastic``) on
-    ``device`` for ``n_cols``."""
-    key = (device.index, n_cols, plastic)
+def _index(device: torch.device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def cooperative_grid(device: torch.device, n_cols: int) -> int:
+    """Blocks of K3's and K4's cooperative launch on ``device`` for
+    ``n_cols`` ring columns: one per SM, fewer for a small network."""
+    key = (_index(device), n_cols)
     if key not in _grid:
         lib = _lib()
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
-            code = lib.lif_deliver_grid(_I(n_cols), _I(int(plastic)),
-                                        ctypes.byref(out))
+            code = lib.lif_deliver_grid(_I(n_cols), ctypes.byref(out))
         if code == -1:
             raise RuntimeError(
                 f"{torch.cuda.get_device_name(device)} has no cooperative "
                 f"launch (cudaDevAttrCooperativeLaunch == 0): the fused "
                 f"lif_deliver step cannot run; use kernels='split'")
-        _build.check(lib, code, "lif_deliver_grid")
-        if out.value < 1:
+        if code == -2:
             raise RuntimeError("lif_deliver: no block of the kernel fits "
                                "on an SM")
+        _build.check(lib, code, "lif_deliver_grid")
         _grid[key] = out.value
     return _grid[key]
 
 
-def stamped_launch(grid: int, device) -> torch.Tensor:
-    """A zeroed ``[grid, stamps]`` int64 buffer: passed as ``stamps=`` to
-    :func:`lif_deliver` or :func:`lif_deliver_plastic`, it selects the
-    kernel's stamped instantiation, which writes each block's
-    ``%globaltimer`` (ns) at its start and at the end of every phase and
-    barrier."""
+def compaction_tiles(n: int, grid: int) -> list:
+    """The ``[lo, hi)`` neuron tile of each block's compaction: ``grid``
+    tiles of ``ceil(n / grid)`` neurons (the last ones shorter or empty)
+    covering ``[0, n)``, as the kernel cuts them."""
+    tile = -(-n // grid)
+    return [(min(b * tile, n), min(b * tile + tile, n)) for b in range(grid)]
+
+
+def workspace(device: torch.device, grid: int) -> torch.Tensor:
+    """The kernel's persistent workspace for ``grid`` blocks on ``device``
+    (int64 words: the launch count, then one look-back word per block),
+    zeroed when first asked for and never again: the kernel advances the
+    count itself."""
+    key = (_index(device), grid)
+    if key not in _workspaces:
+        _workspaces[key] = torch.zeros(
+            _lib().lif_deliver_workspace_words(grid), dtype=torch.int64,
+            device=device)
+    return _workspaces[key]
+
+
+def stamps_buffer(device: torch.device, n_cols: int) -> torch.Tensor:
+    """A ``[grid, len(PHASES) + 1]`` int64 buffer for one stamped launch:
+    passed as ``stamps=`` to :func:`lif_deliver` or
+    :func:`lif_deliver_plastic`, it selects the kernel's stamped
+    instantiation, where each block writes its ``%globaltimer`` (ns) at its
+    start and at the end of each of ``PHASES``."""
+    grid = cooperative_grid(device, n_cols)
     return torch.zeros(grid, _lib().lif_deliver_stamps(), dtype=torch.int64,
                        device=device)
 
 
-def _step_args(what, ring, targets, weights, dbins, spiked_prev, V, I_ex,
-               I_in, refrac, ext_ex, i_dc, t_prev, n_exc, budget, prop,
-               plastic, stamps=None):
-    """Checks K3's or K4's inputs, allocates the outputs and returns them
-    with the C arguments they share."""
+def _check_stamps(what, stamps, ring, n_cols):
+    want = (cooperative_grid(ring.device, n_cols), _lib().lif_deliver_stamps())
+    if stamps.dtype != torch.int64 or tuple(stamps.shape) != want \
+            or stamps.device != ring.device or not stamps.is_contiguous():
+        raise ValueError(f"{what}: stamps must be a stamps_buffer (int64 "
+                         f"{list(want)} on {ring.device})")
+
+
+def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
+                 V, I_ex, I_in, refrac, ext_ex, i_dc, t_prev, n_exc, budget,
+                 prop, coef):
+    """Checks K3's or K4's inputs and allocates the outputs; returns them
+    with the C arguments that K3 and K4 share: the session's cached pack,
+    then this step's tensors and ``t_prev``."""
     _check_inputs(what, ring, targets, weights, dbins, spiked_prev)
     _build.require_cuda(what, ring, V, I_ex, I_in, refrac, ext_ex, i_dc)
     if budget < 1:
         raise ValueError("the fused step needs spike_budget >= 1")
+    k_pad = targets.shape[1]
+    if budget * k_pad >= 2 ** 30:
+        raise ValueError(f"{what}: budget x k_pad = {budget * k_pad} "
+                         f"entries; the kernel counts them in 32 bits")
     n = V.shape[0]
     dev = ring.device
-    grid = cooperative_grid(dev, n + 1, plastic)
+    grid = cooperative_grid(dev, n + 1)
+    pack = session_pack(targets, weights, dbins, pmask, workspace(dev, grid),
+                        n=n, n_exc=n_exc, d_bins=ring.shape[0], budget=budget,
+                        grid=grid, prop=prop, coef=coef)
     Vo, Iexo, Iino = (torch.empty_like(V) for _ in range(3))
     refo = torch.empty_like(refrac)
     spk = torch.empty(n, dtype=torch.bool, device=dev)
-    counts = torch.empty(grid, dtype=torch.int32, device=dev)
     ids = torch.empty(budget, dtype=torch.int32, device=dev)
     overflow = torch.empty((), dtype=torch.int32, device=dev)
-    c_args = (
-        *(_build.ptr(t) for t in (spiked_prev, targets, weights, dbins)),
-        _I(targets.shape[1]),
-        *(_build.ptr(t) for t in (ring, V, I_ex, I_in, refrac, ext_ex, i_dc,
-                                  Vo, Iexo, Iino, refo, spk, counts, ids,
-                                  overflow)),
-        _I(n), _I(n_exc), _I(ring.shape[0]), _I(budget), _I(int(t_prev)),
-        *prop_args(prop), _I(grid),
-        None if stamps is None else _build.ptr(stamps))
+    c_args = (ctypes.addressof(pack),
+              *(t.data_ptr() for t in (spiked_prev, ring, V, I_ex, I_in,
+                                       refrac, ext_ex, i_dc, Vo, Iexo, Iino,
+                                       refo, spk, ids, overflow)),
+              int(t_prev))
     return (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args
 
 
@@ -173,16 +268,27 @@ def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
                 refrac, ext_ex, i_dc, t_prev: int, *, n_exc: int,
                 budget: int, prop: Propagators, stamps=None):
     """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``;
-    see :func:`lif_deliver_plain`."""
+    see :func:`lif_deliver_plain`.  ``stamps`` (a ``stamps_buffer``, on the
+    card only) selects the stamped kernel, for a phase table."""
     args = (ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
             refrac, ext_ex, i_dc, t_prev)
     if ring.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("lif_deliver: stamps are the kernel's, on the "
+                             "card")
         return lif_deliver_plain(*args, n_exc=n_exc, budget=budget,
                                  prop=prop)
-    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _step_args(
-        "lif_deliver", *args, n_exc, budget, prop, False, stamps)
+    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _launch_args(
+        "lif_deliver", ring, targets, weights, dbins, None, *args[4:],
+        n_exc, budget, prop, None)
     lib = _lib()
-    code = lib.lif_deliver_launch(*c_args, _build.stream_of(ring))
+    stream = _build.stream_of(ring)
+    if stamps is None:
+        code = lib.lif_deliver_launch(*c_args, stream)
+    else:
+        _check_stamps("lif_deliver", stamps, ring, ring.shape[2])
+        code = lib.lif_deliver_stamped_launch(*c_args, stamps.data_ptr(),
+                                              stream)
     _build.launches["lif_deliver"] += 1
     _build.check(lib, code, "lif_deliver (cooperative launch)")
     return ring, Vo, Iexo, Iino, refo, spk, ids, overflow
@@ -195,31 +301,38 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
                         trace: bool = True, stamps=None):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
     x_pre', x_post', ids, overflow)``; see
-    :func:`lif_deliver_plastic_plain`."""
-    args = (ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
-            refrac, ext_ex, i_dc)
+    :func:`lif_deliver_plastic_plain`.  ``stamps`` as for
+    :func:`lif_deliver`."""
     if ring.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("lif_deliver_plastic: stamps are the "
+                             "kernel's, on the card")
         return lif_deliver_plastic_plain(
-            ring, targets, weights, dbins, pmask, *args[4:], x_pre, x_post,
-            t_prev, n_exc=n_exc, budget=budget, prop=prop, coef=coef,
-            trace=trace)
-    _build.require_cuda("lif_deliver_plastic", pmask, x_pre, x_post)
+            ring, targets, weights, dbins, pmask, spiked_prev, V, I_ex,
+            I_in, refrac, ext_ex, i_dc, x_pre, x_post, t_prev, n_exc=n_exc,
+            budget=budget, prop=prop, coef=coef, trace=trace)
+    _build.require_cuda("lif_deliver_plastic", ring, pmask, x_pre, x_post)
     if pmask.dtype != torch.bool or pmask.shape != targets.shape:
         raise TypeError("lif_deliver_plastic: pmask must be bool, shaped "
                         "as the tables")
     if x_pre.dtype != torch.float32 or x_post.dtype != torch.float32:
         raise TypeError("lif_deliver_plastic: traces must be float32")
-    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _step_args(
-        "lif_deliver_plastic", *args, t_prev, n_exc, budget, prop, True,
-        stamps)
+    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _launch_args(
+        "lif_deliver_plastic", ring, targets, weights, dbins, pmask,
+        spiked_prev, V, I_ex, I_in, refrac, ext_ex, i_dc, t_prev, n_exc,
+        budget, prop, coef)
     x_pre_o, x_post_o = ((torch.empty_like(x_pre), torch.empty_like(x_post))
                          if trace else (x_pre, x_post))
+    traces = (x_pre.data_ptr(), x_post.data_ptr(), x_pre_o.data_ptr(),
+              x_post_o.data_ptr(), int(trace))
     lib = _lib()
-    code = lib.lif_deliver_plastic_launch(
-        *c_args, *(_build.ptr(t) for t in (pmask, x_pre, x_post, x_pre_o,
-                                           x_post_o)),
-        _F(coef.dep), _F(coef.decay_p), _F(coef.decay_m), _I(int(trace)),
-        _build.stream_of(ring))
+    stream = _build.stream_of(ring)
+    if stamps is None:
+        code = lib.lif_deliver_plastic_launch(*c_args, *traces, stream)
+    else:
+        _check_stamps("lif_deliver_plastic", stamps, ring, ring.shape[2])
+        code = lib.lif_deliver_plastic_stamped_launch(
+            *c_args, *traces, stamps.data_ptr(), stream)
     _build.launches["lif_deliver_plastic"] += 1
     _build.check(lib, code, "lif_deliver_plastic (cooperative launch)")
     return (ring, weights, Vo, Iexo, Iino, refo, spk, x_pre_o, x_post_o, ids,

@@ -106,12 +106,33 @@ CASES = {"zero_spikes": 0, "one_spike": 1, "budget_exact": BUDGET,
          "budget_overflow": BUDGET + 40, "refractory_mix": 60}
 
 
-@pytest.mark.parametrize("case", list(CASES))
-def test_lif_deliver_bitwise_vs_jax_split(net, case):
+def edge_spikes(n: int, case: str, budget: int = BUDGET) -> np.ndarray:
+    """Spike vectors at the compaction's edges: the last neuron; every
+    multiple of 512 and of ceil(n / 132) (the tiles of a 512-thread block
+    and of one tile per H100 SM), and the last neuron of each of the latter
+    tiles; ``2 * budget`` random spikes, so that the budget cuts the
+    spiking ids in the middle."""
+    tile = -(-n // 132)
+    at = {"last_neuron": [n - 1],
+          "every_512": range(0, n, 512),
+          "every_ceil_n_132": range(0, n, tile),
+          "tile_edges_132": [i for b in range(0, n, tile)
+                             for i in (b, min(b + tile, n) - 1)],
+          "budget_cut_mid": np.random.default_rng(3).choice(
+              n, size=2 * budget, replace=False)}[case]
+    spiked = np.zeros(n, bool)
+    spiked[np.asarray(list(at), dtype=np.int64)] = True
+    return spiked
+
+
+EDGE_CASES = ("last_neuron", "every_512", "every_ceil_n_132",
+              "tile_edges_132", "budget_cut_mid")
+
+
+def _assert_lif_deliver_equals_jax(net, x, t):
+    """The port's ``lif_deliver`` (plain on the CPU) against JAX's split
+    step, bitwise, and its ids: the lowest BUDGET spiking ids, then N."""
     c_jax, jcfg, jnet, c, pcfg, pnet = net
-    x = _state(c, seed=len(case), n_spikes=CASES[case],
-               refrac_max=20 if case == "refractory_mix" else 2)
-    t = 777
     want = _jax_split(c_jax, jcfg, jnet, x, t)
     p, ext_ex = _port_inputs(c, x)
     tb = pnet.tables
@@ -125,10 +146,28 @@ def test_lif_deliver_bitwise_vs_jax_split(net, case):
     for name, a, b in zip(("ring", "V", "I_ex", "I_in", "refrac",
                            "spiked", "overflow"), got, want):
         np.testing.assert_array_equal(a, b, err_msg=name)
-    assert int(ovf) == max(CASES[case] - BUDGET, 0)
+    n_spikes = int(x["spiked_prev"].sum())
+    assert int(ovf) == max(n_spikes - BUDGET, 0)
     hits = np.flatnonzero(x["spiked_prev"])[:BUDGET]
     np.testing.assert_array_equal(ids.numpy()[:hits.size], hits)
     assert (ids.numpy()[hits.size:] == c.n_total).all()
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_lif_deliver_bitwise_vs_jax_split(net, case):
+    x = _state(net[3], seed=len(case), n_spikes=CASES[case],
+               refrac_max=20 if case == "refractory_mix" else 2)
+    _assert_lif_deliver_equals_jax(net, x, t=777)
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_lif_deliver_compaction_edges_vs_jax_split(net, case):
+    """The contract the card's compaction keeps at its tiles' edges: which
+    ids are delivered, in which order, and the overflow."""
+    c = net[3]
+    x = _state(c, seed=11 + len(case), n_spikes=0)
+    x["spiked_prev"] = edge_spikes(c.n_total, case)
+    _assert_lif_deliver_equals_jax(net, x, t=901)
 
 
 def test_fused_update_phase_bitwise_vs_jax_split(net):

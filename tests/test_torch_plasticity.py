@@ -51,6 +51,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ell_deliver import compact_ids_plain
 from repro_torch.kernels.lif_deliver import lif_deliver_plastic
 from repro_torch.kernels.stdp import clip_plain
+from test_torch_fused_step import EDGE_CASES, edge_spikes
 
 SCALE, SEED, BUDGET, DT = 0.02, 55, 128, 0.1
 CPU = torch.device("cpu")
@@ -98,10 +99,10 @@ def _jax_plastic_arrays(tables, ps):
                 "plastic_in")}}
 
 
-def _random_plastic(net, seed, n_spikes, n_above=40):
+def _random_plastic(net, seed, n_spikes, n_above=40, spiked=None):
     """JAX and port plastic states alike: the connectome's weights with
     ``n_above`` plastic weights raised above w_max, random traces, and a
-    spike vector with ``n_spikes`` spikes."""
+    spike vector with ``n_spikes`` spikes (or ``spiked`` as given)."""
     c, rng = net["c"], np.random.default_rng(seed)
     n = c.n_total
     w = np.asarray(net["jps0"].weights).copy()
@@ -111,8 +112,9 @@ def _random_plastic(net, seed, n_spikes, n_above=40):
     w[rng.choice(plastic, n_above, replace=False)] = np.float32(1.5 * w_max)
     x_pre = rng.uniform(0.0, 3.0, n).astype(np.float32)
     x_post = rng.uniform(0.0, 3.0, n).astype(np.float32)
-    spiked = np.zeros(n, bool)
-    spiked[rng.choice(n, size=n_spikes, replace=False)] = True
+    if spiked is None:
+        spiked = np.zeros(n, bool)
+        spiked[rng.choice(n, size=n_spikes, replace=False)] = True
     jps = JP.PlasticState(jnp.asarray(w), jnp.asarray(x_pre),
                           jnp.asarray(x_post))
     arrays = _jax_plastic_arrays(net["jtables"], jps)
@@ -281,10 +283,23 @@ def test_lif_deliver_plastic_bitwise_vs_jax_split(net, case):
     ``deliver`` (live weights) + ``stdp_step`` at phase ``t - 1`` and
     ``update_phase`` at ``t``: ring, state, spikes, weights, traces,
     ids and overflow."""
+    _assert_k4_equals_jax(net, len(case), *_random_plastic(
+        net, seed=200 + len(case), n_spikes=SPIKE_CASES[case]))
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_lif_deliver_plastic_compaction_edges_vs_jax_split(net, case):
+    """K4 at the compaction's edges (``test_torch_fused_step.edge_spikes``:
+    the last neuron, the tiles' first and last neurons, a budget cut in
+    the middle of the spiking ids), as above."""
+    spiked = edge_spikes(net["c"].n_total, case, BUDGET)
+    _assert_k4_equals_jax(net, 7 + len(case), *_random_plastic(
+        net, seed=300 + len(case), n_spikes=0, spiked=spiked))
+
+
+def _assert_k4_equals_jax(net, seed, jps, ps, spiked_prev):
     c, jt = net["c"], net["jtables"]
-    n, rng = c.n_total, np.random.default_rng(100 + len(case))
-    jps, ps, spiked_prev = _random_plastic(net, seed=200 + len(case),
-                                           n_spikes=SPIKE_CASES[case])
+    n, rng = c.n_total, np.random.default_rng(100 + seed)
     ring = np.zeros((c.d_max_bins, 2, n + 1), np.float32)
     ring[:, 0, :n] = rng.uniform(0, 60, (c.d_max_bins, n))
     ring[:, 1, :n] = -rng.uniform(0, 60, (c.d_max_bins, n))
