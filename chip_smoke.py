@@ -251,16 +251,12 @@ def phase_table(stamps, names) -> dict:
     between two stamps of a block (the timer's resolution, or above it).
     ``stamps`` is ``[launches, grid, len(names) + 1]`` int64 ns."""
     import torch
-    st = stamps.to(torch.float64)
-    d = (st[:, :, 1:] - st[:, :, :-1]) / 1e3
-    out = {}
-    for k, name in enumerate(names):
-        v = d[:, :, k].flatten()
-        out[name] = [float(v.median()), float(v.mean()), float(v.max())]
-    for name, v in (("span", st[:, :, -1].amax(1) - st[:, :, 0].amin(1)),
-                    ("start_skew", st[:, :, 0].amax(1) - st[:, :, 0].amin(1))):
-        v = v / 1e3
-        out[name] = [float(v.median()), float(v.mean()), float(v.max())]
+    st = stamps.to(torch.float64) / 1e3
+    stats = lambda v: [float(v.median()), float(v.mean()), float(v.max())]
+    out = {name: stats(st[:, :, k + 1] - st[:, :, k])
+           for k, name in enumerate(names)}
+    out["span"] = stats(st[:, :, -1].amax(1) - st[:, :, 0].amin(1))
+    out["start_skew"] = stats(st[:, :, 0].amax(1) - st[:, :, 0].amin(1))
     steps = (stamps[:, :, 1:] - stamps[:, :, :-1]).flatten()
     out["tick_ns"] = int(steps[steps > 0].min()) if bool((steps > 0).any()) \
         else None

@@ -1,15 +1,16 @@
-// Device pieces of the sparse-ELL spike delivery, shared by ell_deliver.cu
-// (K2, three plain launches) and lif_deliver.cu (K3, one cooperative
-// launch).
+// Device pieces of the sparse-ELL spike delivery: the ordered compaction,
+// shared by ell_deliver.cu (K2, three plain launches) and spike_deliver.cu
+// (K5), and K2's scatter.  (K3 and K4 in lif_deliver.cu compact in one
+// pass by decoupled look-back instead.)
 //
 // Ordered compaction.  The reference takes jnp.nonzero(spiked, size=budget,
 // fill_value=N): the LOWEST `budget` spiking ids in ascending order, then
 // the sentinel N.  Which spikes an overflow drops is part of the result, so
 // an atomic-counter compaction (arbitrary order) would not do.  Here the
 // neurons are cut into one tile per block: each block counts its tile, and
-// after a barrier (a second launch, or a grid sync) each block sums the
-// counts of the tiles before it and writes its spikes' ranks with a
-// block-wide prefix scan.  Ranks at or past `budget` are dropped.
+// in a second launch each block sums the counts of the tiles before it and
+// writes its spikes' ranks with a block-wide prefix scan.  Ranks at or past
+// `budget` are dropped.
 //
 // Scatter.  Each spiking row's K_pad (target, weight, delay-bin) entries are
 // split into chunks; a block's threads stride over a chunk and atomicAdd
@@ -117,21 +118,10 @@ struct EllTables {
   int k_pad;
 };
 
-// K4's pair-STDP depression, folded into the scatter: each plastic entry
-// is written back depressed right after its weight was scattered.
-struct Depression {
-  float* weights;                // the live table: EllTables::weights
-  const unsigned char* pmask;    // [N+1, k_pad] plastic (E->E) entries
-  const float* x_post;           // [N] post traces before this step's bump
-  float dep_coef;
-};
-
-// Scatters entries [j0, j1) of source row `sid` into the ring at phase t
-// (and, with kDepress, depresses the row's plastic entries in place).
-template <bool kDepress = false>
+// Scatters entries [j0, j1) of source row `sid` into the ring at phase t.
 __device__ __forceinline__ void scatter_chunk(
     const EllTables& tb, int sid, int j0, int j1, float* ring, int t,
-    int d_bins, int n_cols, int n_exc, const Depression& dep = {}) {
+    int d_bins, int n_cols, int n_exc) {
   const int n = n_cols - 1;
   const int ch = sid >= n_exc ? 1 : 0;
   const size_t row = static_cast<size_t>(sid) * tb.k_pad;
@@ -141,10 +131,5 @@ __device__ __forceinline__ void scatter_chunk(
     const int slot = (t + tb.dbins[row + j]) % d_bins;
     const float w = tb.weights[row + j];
     atomicAdd(ring + (static_cast<size_t>(slot) * 2 + ch) * n_cols + tg, w);
-    if constexpr (kDepress) {
-      if (dep.pmask[row + j])
-        dep.weights[row + j] = stdp_depressed(w, dep.dep_coef,
-                                              dep.x_post[tg]);
-    }
   }
 }

@@ -66,7 +66,7 @@
 
 #include <algorithm>
 
-#include "ell_common.cuh"
+#include "common.cuh"
 
 namespace cg = cooperative_groups;
 

@@ -118,7 +118,7 @@ def step_const(ptrs: tuple, sizes: tuple, prop: Propagators,
 
 #: ``step_const`` cached by its inputs, all plain values, so that a hit is
 #: the pack those inputs build; the wrapper never writes into a pack
-cached_step_const = functools.lru_cache(maxsize=32)(step_const)
+_cached_step_const = functools.lru_cache(maxsize=32)(step_const)
 
 
 def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
@@ -126,10 +126,11 @@ def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
                  coef) -> StepConst:
     """The cached pack of a session's tables (``pmask`` and ``coef`` None
     for K3), workspace and sizes, as a launch takes it."""
-    return cached_step_const(
+    return _cached_step_const(
         (targets.data_ptr(), weights.data_ptr(), dbins.data_ptr(),
          0 if pmask is None else pmask.data_ptr(), ws.data_ptr()),
         (targets.shape[1], n, n_exc, d_bins, budget, grid), prop, coef)
+
 
 _IO_ARGTYPES = [_P] + [_P] * 15 + [_I]          # pack, tensors, t_prev
 _PLASTIC_ARGTYPES = [_P] * 4 + [_I]             # traces in and out, trace
