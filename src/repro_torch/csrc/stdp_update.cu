@@ -39,6 +39,9 @@ namespace {
 
 constexpr int kBlock = 512;
 constexpr int kChunk = 1024;          // row entries per work item
+// %globaltimer stamps a block of the stamped launches: its start, and the
+// end of each of PHASES in kernels/stdp.py
+constexpr int kStamps = 6;
 
 struct StdpArgs {
   const int* ids;                     // [budget], ascending, then N
@@ -54,7 +57,21 @@ struct StdpArgs {
   float* x_post_o;
   int n, k, k_in, budget, full, clip_all;
   float dep, pot, decay_p, decay_m, w_max;
+  unsigned long long* stamps;         // [grid, kStamps], stamped launches
 };
+
+// Stamp k of this block, once all its threads are past the point.
+template <bool kOn>
+__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
+  if constexpr (kOn) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      s[blockIdx.x * kStamps + k] = t;
+    }
+  }
+}
 
 // Calls f(e) for every entry e of the rows of the real ids (row length
 // `len`), one (id, chunk) work item per block, the threads striding over
@@ -76,8 +93,10 @@ __device__ __forceinline__ void clip_entry(float* w, size_t e, float w_max) {
   if (__float_as_uint(c) != __float_as_uint(v)) w[e] = c;
 }
 
+template <bool kStamped>
 __global__ void __launch_bounds__(kBlock) stdp_update_kernel(StdpArgs a) {
   cg::grid_group grid = cg::this_grid();
+  stamp<kStamped>(a.stamps, 0);
   if (a.full) {
     for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < a.n;
          i += gridDim.x * blockDim.x) {
@@ -88,15 +107,21 @@ __global__ void __launch_bounds__(kBlock) stdp_update_kernel(StdpArgs a) {
       if (a.pmask[e])
         a.w[e] = stdp_depressed(a.w[e], a.dep, a.x_post[a.targets[e]]);
     });
+    stamp<kStamped>(a.stamps, 1);
     grid.sync();
+  } else {
+    stamp<kStamped>(a.stamps, 1);
   }
+  stamp<kStamped>(a.stamps, 2);
   for_rows(a, a.k_in, [=](size_t e) {
     if (a.pmask_in[e]) {
       const int syn = a.in_syn[e];
       a.w[syn] = stdp_potentiated(a.w[syn], a.pot, a.x_pre[syn / a.k]);
     }
   });
+  stamp<kStamped>(a.stamps, 3);
   grid.sync();
+  stamp<kStamped>(a.stamps, 4);
   if (a.clip_all) {
     const size_t total = static_cast<size_t>(a.n + 1) * a.k;
     for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x +
@@ -111,6 +136,17 @@ __global__ void __launch_bounds__(kBlock) stdp_update_kernel(StdpArgs a) {
       if (a.pmask_in[e]) clip_entry(a.w, a.in_syn[e], a.w_max);
     });
   }
+  stamp<kStamped>(a.stamps, 5);
+}
+
+template <bool kStamped>
+int launch(StdpArgs a, int grid, void* stream) {
+  void* args[] = {&a};
+  cudaError_t err = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(stdp_update_kernel<kStamped>), dim3(grid),
+      dim3(kBlock), args, 0, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();   // clears a refused launch
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 }  // namespace
@@ -118,32 +154,46 @@ __global__ void __launch_bounds__(kBlock) stdp_update_kernel(StdpArgs a) {
 // The cooperative grid for this card: co-resident blocks per SM x SMs.
 // Returns -1 when the card has no cooperative launch.
 EXPORT int stdp_update_grid(int* grid_out) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0, per_sm_st = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return -1;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, stdp_update_kernel,
-                                                kBlock, 0);
-  *grid_out = per_sm * sms;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, stdp_update_kernel<false>, kBlock, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm_st, stdp_update_kernel<true>, kBlock, 0);
+  *grid_out = (per_sm < per_sm_st ? per_sm : per_sm_st) * sms;
   return static_cast<int>(cudaGetLastError());
 }
 
-EXPORT int stdp_update_launch(
-    const int* ids, int budget, const int* targets,
-    const unsigned char* pmask, float* w, int k, const int* in_syn,
-    const unsigned char* pmask_in, int k_in, const float* x_pre,
-    const float* x_post, const unsigned char* spiked, float* x_pre_o,
-    float* x_post_o, int n, int full, int clip_all, float dep, float pot,
-    float decay_p, float decay_m, float w_max, int grid, void* stream) {
-  StdpArgs a{ids,    targets, pmask,    w,       in_syn,   pmask_in,
-             x_pre,  x_post,  spiked,   x_pre_o, x_post_o, n,
-             k,      k_in,    budget,   full,    clip_all, dep,
-             pot,    decay_p, decay_m,  w_max};
-  void* args[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(stdp_update_kernel), dim3(grid), dim3(kBlock),
-      args, 0, static_cast<cudaStream_t>(stream));
-  const cudaError_t last = cudaGetLastError();   // clears a refused launch
-  return static_cast<int>(err != cudaSuccess ? err : last);
+EXPORT int stdp_update_stamps() { return kStamps; }
+
+#define STDP_PARAMS                                                         \
+  const int *ids, int budget, const int *targets,                           \
+      const unsigned char *pmask, float *w, int k, const int *in_syn,       \
+      const unsigned char *pmask_in, int k_in, const float *x_pre,          \
+      const float *x_post, const unsigned char *spiked, float *x_pre_o,     \
+      float *x_post_o, int n, int full, int clip_all, float dep, float pot, \
+      float decay_p, float decay_m, float w_max
+
+#define STDP_ARGS                                                           \
+  StdpArgs a{ids,    targets, pmask,   w,        in_syn,  pmask_in,         \
+             x_pre,  x_post,  spiked,  x_pre_o,  x_post_o, n,               \
+             k,      k_in,    budget,  full,     clip_all, dep,             \
+             pot,    decay_p, decay_m, w_max,    nullptr}
+
+EXPORT int stdp_update_launch(STDP_PARAMS, int grid, void* stream) {
+  STDP_ARGS;
+  return launch<false>(a, grid, stream);
+}
+
+// The stamped instantiation, for chip_smoke.py's phase table: each block
+// writes its kStamps %globaltimer stamps into stamps[blockIdx.x * kStamps].
+EXPORT int stdp_update_stamped_launch(STDP_PARAMS,
+                                      unsigned long long* stamps, int grid,
+                                      void* stream) {
+  STDP_ARGS;
+  a.stamps = stamps;
+  return launch<true>(a, grid, stream);
 }

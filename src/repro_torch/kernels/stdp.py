@@ -38,6 +38,8 @@ from repro_torch.kernels import _build
 _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 _grid: dict = {}
+#: what lies between a block's consecutive stamps (``stamps_buffer``)
+PHASES = ("depress_traces", "barrier_1", "potentiate", "barrier_2", "clip")
 
 
 class StdpCoef(NamedTuple):
@@ -121,10 +123,14 @@ def _lib():
     if not getattr(lib, "_typed", False):
         lib.stdp_update_grid.restype = ctypes.c_int
         lib.stdp_update_grid.argtypes = [_P]
+        args = ([_P, _I, _P, _P, _P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 3
+                + [_F] * 5)
+        lib.stdp_update_stamps.restype = ctypes.c_int
+        lib.stdp_update_stamps.argtypes = []
         lib.stdp_update_launch.restype = ctypes.c_int
-        lib.stdp_update_launch.argtypes = (
-            [_P, _I, _P, _P, _P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 3
-            + [_F] * 5 + [_I, _P])
+        lib.stdp_update_launch.argtypes = args + [_I, _P]
+        lib.stdp_update_stamped_launch.restype = ctypes.c_int
+        lib.stdp_update_stamped_launch.argtypes = args + [_P, _I, _P]
         lib._typed = True
     return lib
 
@@ -147,14 +153,27 @@ def cooperative_grid(device: torch.device) -> int:
     return _grid[device.index]
 
 
+def stamps_buffer(device: torch.device) -> torch.Tensor:
+    """A ``[grid, len(PHASES) + 1]`` int64 buffer for one stamped launch:
+    passed as ``stamps=`` to :func:`stdp_update`, it selects the kernel's
+    stamped instantiation, where each block writes its ``%globaltimer``
+    (ns) at its start and at the end of each of ``PHASES``."""
+    return torch.zeros(cooperative_grid(device), _lib().stdp_update_stamps(),
+                       dtype=torch.int64, device=device)
+
+
 def stdp_update(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
                 x_post, spiked, coef: StdpCoef, *, full: bool,
-                clip_all: bool):
+                clip_all: bool, stamps=None):
     """Returns ``(weights, x_pre', x_post')``; see
-    :func:`stdp_update_plain`."""
+    :func:`stdp_update_plain`.  ``stamps`` (a ``stamps_buffer``, on the
+    card only) selects the stamped kernel, for a phase table."""
     args = (weights, targets, pmask, in_syn, pmask_in, ids, x_pre, x_post,
             spiked)
     if weights.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stdp_update: stamps are the kernel's, on the "
+                             "card")
         return stdp_update_plain(*args, coef, full=full, clip_all=clip_all)
     _build.require_cuda("stdp_update", weights, targets, pmask, in_syn,
                         pmask_in, ids, x_pre,
@@ -183,13 +202,18 @@ def stdp_update(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
     dev = weights.device
     grid = cooperative_grid(dev)
     lib = _lib()
-    code = lib.stdp_update_launch(
+    c_args = (
         _build.ptr(ids), _I(ids.shape[0]), _build.ptr(targets),
         _build.ptr(pmask), _build.ptr(weights), _I(k), _build.ptr(in_syn),
         _build.ptr(pmask_in), _I(k_in), _build.ptr(x_pre), maybe(x_post),
         maybe(spiked), maybe(x_pre_o), maybe(x_post_o), _I(n), _I(int(full)),
-        _I(int(clip_all)), *(_F(v) for v in coef), _I(grid),
-        _build.stream_of(weights))
+        _I(int(clip_all)), *(_F(v) for v in coef))
+    if stamps is None:
+        code = lib.stdp_update_launch(*c_args, _I(grid),
+                                      _build.stream_of(weights))
+    else:
+        code = lib.stdp_update_stamped_launch(
+            *c_args, _build.ptr(stamps), _I(grid), _build.stream_of(weights))
     _build.launches["stdp_update"] += 1
     _build.check(lib, code, "stdp_update (cooperative launch)")
     return weights, x_pre_o, x_post_o

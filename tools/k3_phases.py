@@ -1,16 +1,22 @@
-"""K3's and K4's phases and times on one card, for A/B runs of two trees.
+"""The fused step's and the delivery's kernels on one card, for A/B runs
+of two trees: K3, K4, K2 and ``stdp_update``'s two per-step forms.
 
 Builds ELL tables of the full-scale microcircuit's shape on the card
 (N = 77,169 neurons, 61,843 excitatory, k_pad = 6,784, D = 46 delay bins;
 each row 3,000-4,599 real entries with random targets and delay bins,
-weights signed by Dale's law, half the entries plastic), then, for K3 and
-for K4 at ``--spikes`` random spikes a step (budget 256): the phase table of
-64 stamped launches (``chip_smoke.phase_table``), the device time a launch
+weights signed by Dale's law, half the entries plastic for K4), and for
+``stdp_update`` the plastic tables of those (the E->E entries and their IN
+view, ``plasticity.build_plastic_tables``), then, for each ``--kernel`` at
+``--spikes`` random spikes a step (budget 256): the phase table of 64
+stamped launches (``chip_smoke.phase_table``; none for a tree whose kernel
+has no stamped instantiation), the device time a launch
 (``torch.profiler``), the back-to-back time a call (CUDA events: the
 host's rate) and the time a launch of 64 launches replayed in one CUDA
-graph.  Prints the card's name and power limit, then one JSON line.  The
-tree under test comes from ``PYTHONPATH``, so two trees are compared with
-one copy of this script, alternating the trees within one machine call::
+graph.  ``stdp`` is the potentiation and clip after K4 (``full=False``),
+``stdp_full`` the whole step.  Prints the card's name and power limit, then
+one JSON line.  The tree under test comes from ``PYTHONPATH``, so two trees
+are compared with one copy of this script, alternating the trees within
+one machine call::
 
     for t in parent change change parent; do
         PYTHONPATH=build/ab/$t/src python3 tools/k3_phases.py --tag $t
@@ -20,6 +26,7 @@ import argparse
 import json
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -28,10 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from chip_smoke import call_ms, card_line, device_ms, phase_table  # noqa
 
 
-def stamps_buffer(K3, dev, n_cols):
-    if hasattr(K3, "stamps_buffer"):
-        return K3.stamps_buffer(dev, n_cols)
-    return K3.stamped_launch(K3.cooperative_grid(dev, n_cols), dev)
+KERNELS = ("k3", "k4", "k2", "stdp")
 
 
 def main() -> None:
@@ -39,13 +43,19 @@ def main() -> None:
     ap.add_argument("--spikes", type=int, default=25)
     ap.add_argument("--seed", type=int, default=55)
     ap.add_argument("--tag", default="")
+    ap.add_argument("--kernel", nargs="+", choices=KERNELS,
+                    default=list(KERNELS))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k3_phases.py times the card: no CUDA device")
     import repro_torch
+    from repro_torch.core import plasticity as PL
     from repro_torch.core.neuron import Propagators
     from repro_torch.core.params import NeuronParams
+    from repro_torch.kernels import ell_deliver as K2
     from repro_torch.kernels import lif_deliver as K3
+    from repro_torch.kernels import stdp as KS
+    from repro_torch.kernels.ell_deliver import compact_ids_plain
     from repro_torch.kernels.stdp import StdpCoef
 
     print(card_line(), flush=True)
@@ -86,35 +96,64 @@ def main() -> None:
         spks.append(on(s))
     prop = Propagators.make(NeuronParams(), 0.1)
     coef = StdpCoef(1.05, 0.88, 0.995, 0.995, 263.4)
-    launches = {
-        "K3": lambda i, **kw: K3.lif_deliver(
+    # (launch, stamps buffer or None, phase names)
+    k3_stamps = lambda: K3.stamps_buffer(dev, n + 1)
+    launches = {}
+    if "k3" in args.kernel:
+        launches["K3"] = (lambda i, **kw: K3.lif_deliver(
             ring, targets, weights, dbins, spks[i % 64], *state, 1234,
-            n_exc=n_exc, budget=256, prop=prop, **kw),
-        "K4": lambda i, **kw: K3.lif_deliver_plastic(
+            n_exc=n_exc, budget=256, prop=prop, **kw), k3_stamps, K3.PHASES)
+    if "k4" in args.kernel:
+        launches["K4"] = (lambda i, **kw: K3.lif_deliver_plastic(
             ring, targets, weights, dbins, pmask, spks[i % 64], *state,
             x_pre, x_post, 1234, n_exc=n_exc, budget=256, prop=prop,
-            coef=coef, **kw)}
+            coef=coef, **kw), k3_stamps, K3.PHASES)
+    if "k2" in args.kernel:
+        stamped = hasattr(K2, "PHASES")
+        launches["K2"] = (lambda i, **kw: K2.ell_deliver(
+            ring, targets, weights, dbins, spks[i % 64], 1234, n_exc, 256,
+            **kw), k3_stamps if stamped else None,
+            K2.PHASES if stamped else None)
+    if "stdp" in args.kernel:
+        ptab = PL.build_plastic_tables(
+            SimpleNamespace(targets=targets, weights=weights, dbins=dbins),
+            n_exc)
+        ids = [compact_ids_plain(x, 256)[0] for x in spks]
+        w_live = weights.clone()
+        for full in (False, True):
+            launches["stdp_full" if full else "stdp"] = (
+                lambda i, full=full, **kw: KS.stdp_update(
+                    w_live, targets, ptab.plastic_out, ptab.in_syn_idx,
+                    ptab.plastic_in, ids[i % 64], x_pre, x_post,
+                    spks[i % 64], coef, full=full, clip_all=False, **kw),
+                lambda: KS.stamps_buffer(dev), KS.PHASES)
+        out_k_in = int(ptab.in_syn_idx.shape[1])
     out = {"tag": args.tag, "tree": repro_torch.__file__,
-           "spikes": args.spikes}
-    for name, launch in launches.items():
-        for i in range(3):
-            launch(i, stamps=stamps_buffer(K3, dev, n + 1))
-        bufs = [stamps_buffer(K3, dev, n + 1) for _ in range(64)]
-        for i, b in enumerate(bufs):
-            launch(i, stamps=b)
-        torch.cuda.synchronize()
+           "spikes": args.spikes, "kernels": args.kernel}
+    if "stdp" in args.kernel:
+        out["k_in"] = out_k_in
+    for name, (launch, new_stamps, names) in launches.items():
+        row = {}
+        if new_stamps is not None:
+            for i in range(3):
+                launch(i, stamps=new_stamps())
+            bufs = [new_stamps() for _ in range(64)]
+            for i, b in enumerate(bufs):
+                launch(i, stamps=b)
+            torch.cuda.synchronize()
+            row["phases_us_median_mean_max"] = phase_table(
+                torch.stack(bufs)[..., :len(names) + 1], names)
+            row["grid"] = int(bufs[0].shape[0])
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g):
             for i in range(64):
                 launch(i)
         g.replay()
         torch.cuda.synchronize()
-        graph_ms = call_ms(lambda i: g.replay(), iters=16) / 64
-        out[name] = {"phases_us_median_mean_max": phase_table(
-                         torch.stack(bufs), K3.PHASES),
-                     "ms": device_ms(launch), "call_ms": call_ms(launch),
-                     "graph_ms": graph_ms,
-                     "grid": int(bufs[0].shape[0])}
+        row["graph_ms"] = call_ms(lambda i: g.replay(), iters=16) / 64
+        row["ms"] = device_ms(launch)
+        row["call_ms"] = call_ms(launch)
+        out[name] = row
         del g
     print(json.dumps(out), flush=True)
 
