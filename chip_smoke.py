@@ -14,7 +14,8 @@ Phases, each on its own line; any failed check exits non-zero:
    ``cuobjdump -sass``; each of its three instantiations must have both);
 2. K1 ``lif_update`` on N = 77,169 random neurons, bitwise against its
    plain PyTorch version;
-3. K2 ``ell_deliver``, K3 ``lif_deliver`` and K4 ``lif_deliver_plastic``
+3. K2 ``ell_deliver`` (the delivery-only form of K3's kernel), K3
+   ``lif_deliver`` and K4 ``lif_deliver_plastic``
    on the connectome's ELL tables with budget 256, at 0, 31, 256 and 300
    random spikes, and at the edges of K3's compaction tiles: one spike at
    N - 1; the first and last neuron of every tile (budget 512); 200 spikes
@@ -25,6 +26,8 @@ Phases, each on its own line; any failed check exits non-zero:
    in no fixed order); 2,000 launches of K3 back to back on one workspace
    at changing spike counts, each launch's ids and overflow exact against
    ``compact_ids_plain`` and the workspace's launch count advanced 2,000;
+   400 launches of K2 and K3 in turns on that workspace, the same checks
+   (``[K2_K3_interleaved]``);
    then ``stdp_update`` at the four random spike counts, with and without
    the depression and the whole-table clip, bitwise (weights and traces)
    from a table with E->E weights above w_max; and the plastic tables'
@@ -58,7 +61,11 @@ Phases, each on its own line; any failed check exits non-zero:
    and 64 launches captured in one ``torch.cuda.CUDAGraph``, replayed,
    each launch's outputs held to the same launches run eagerly (exact, the
    ring and currents within 1e-5), and timed (``graph_ms`` a launch,
-   ``[K3_graph]``, ``[K4_graph]``);
+   ``[K3_graph]``, ``[K4_graph]``); the same for K2 (``[K2_phases]`` over
+   the first five phases, ``[K2_graph]``: ids and overflow exact, the ring
+   within 1e-5) and for ``stdp_update``'s two per-step forms
+   (``[stdp_phases]`` over ``stdp.PHASES``, ``[stdp_graph]``: weights and
+   traces bitwise);
 9. the dense strategy, once the full-scale sessions are freed:
    (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
    reference path (two ``torch.matmul`` GEMVs on the source-major table)
@@ -705,7 +712,7 @@ def main() -> None:
     sm90_build(_build)
     say("build", seconds=f"{build_s:.2f}",
         K3_K4_grid=K3.cooperative_grid(dev, 77_170),
-        stdp_update_grid=KS.cooperative_grid(dev))
+        stdp_update_grid=KS.launch_grid(dev))
 
     prop = Propagators.make(NeuronParams(), 0.1)
     rng = np.random.default_rng(args.seed)
@@ -855,6 +862,31 @@ def main() -> None:
              f"launches")
     say("K3_sequence", launches=2000, ids_overflow_exact=True,
         spike_counts=json.dumps([int(x.sum()) for x in pool]),
+        launch_count_advanced=advanced)
+
+    # K2 and K3 in turns on the one workspace, each at every spike count:
+    # each launch's ids and overflow exact, the launch count advanced by
+    # the kernel alone
+    ws0 = int(ws[0])
+    got = []
+    for i in range(400):
+        spk = pool[(i // 2) % len(pool)]
+        got.append(K2.ell_deliver(ring, *tbl, spk, t_step + i, c.n_exc,
+                                  budget)[1:] if i % 2 else
+                   K3.lif_deliver(ring, *tbl, spk, *state_in, ext_ex, i_dc,
+                                  t_step + i, n_exc=c.n_exc, budget=budget,
+                                  prop=prop)[6:])
+    torch.cuda.synchronize()
+    for i, (ids_k, ovf_k) in enumerate(got):
+        ids_p, ovf_p = want_ids[(i // 2) % len(pool)]
+        if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
+            fail(f"{'K2' if i % 2 else 'K3'}'s launch {i} of 400 in turns: "
+                 f"ids or overflow differ from compact_ids_plain")
+    advanced = int(ws[0]) - ws0
+    if advanced != 400:
+        fail(f"K2 and K3 in turns advanced the launch count by {advanced} "
+             f"over 400 launches")
+    say("K2_K3_interleaved", launches=400, ids_overflow_exact=True,
         launch_count_advanced=advanced)
     del got, pool, want_ids
 
@@ -1164,14 +1196,15 @@ def main() -> None:
             r, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
             prop=prop, **kw)
 
-    def stamps_of(launch):
+    def stamps_of(launch, buffer=lambda: K3.stamps_buffer(dev, N + 1),
+                  names=K3.PHASES):
         for i in range(3):
-            launch(i, stamps=K3.stamps_buffer(dev, N + 1))
-        bufs = [K3.stamps_buffer(dev, N + 1) for _ in range(64)]
+            launch(i, stamps=buffer())
+        bufs = [buffer() for _ in range(64)]
         for i, b in enumerate(bufs):
             launch(i, stamps=b)
         torch.cuda.synchronize()
-        return phase_table(torch.stack(bufs), K3.PHASES)
+        return phase_table(torch.stack(bufs)[..., :len(names) + 1], names)
 
     def same_outputs(what, names, tol):
         def compare(i, got, want):
@@ -1195,6 +1228,23 @@ def main() -> None:
     del ring_g, ring_e
     say("K3_graph", launches_captured=64, replay_equal_to_eager=True,
         graph_ms=k3["graph_ms"], ms=k3["ms"], call_ms=k3["call_ms"])
+
+    def k2_on(r):
+        return lambda i, **kw: K2.ell_deliver(r, *tbl, spk_of(i), t_step,
+                                              c.n_exc, budget_main, **kw)
+
+    say("K2_phases", spikes=spikes_per_step, launches=64,
+        us_median_mean_max=json.dumps(stamps_of(k2_on(ring),
+                                                names=K2.PHASES)))
+    ring_g = ring0()
+    ring_e = ring_g.clone()
+    k2_on(ring_e.clone())(0)             # warm-up outside the capture
+    k2["graph_ms"] = graph_replay(
+        k2_on(ring_g), k2_on(ring_e), same_outputs(
+            "K2", ("ring", "ids", "overflow"), ("ring",)))
+    del ring_g, ring_e
+    say("K2_graph", launches_captured=64, replay_equal_to_eager=True,
+        graph_ms=k2["graph_ms"], ms=k2["ms"], call_ms=k2["call_ms"])
 
     # K4 and stdp_update at the plastic path's shapes: its mean spike count,
     # the session's weights (a copy), random traces
@@ -1243,6 +1293,25 @@ def main() -> None:
                                              clip_all=False))
     k5_clip = timed(lambda i: KS.stdp_update(w_t, *stdp_args(i), full=False,
                                              clip_all=True), iters=8)
+
+    def stdp_on(w_live, full):
+        return lambda i, **kw: KS.stdp_update(
+            w_live, *stdp_args(i), full=full, clip_all=False, **kw)
+
+    for full, t in ((False, k5), (True, k5_full)):
+        say("stdp_phases", full=full, spikes=spikes_pl, launches=64,
+            us_median_mean_max=json.dumps(stamps_of(
+                stdp_on(w_t, full), lambda: KS.stamps_buffer(dev),
+                KS.PHASES)))
+        w_g, w_e = w_t.clone(), w_t.clone()
+        stdp_on(w_e.clone(), full)(0)    # warm-up outside the capture
+        t["graph_ms"] = graph_replay(
+            stdp_on(w_g, full), stdp_on(w_e, full), same_outputs(
+                "stdp_update", ("weights", "x_pre", "x_post"), ()))
+        del w_g, w_e
+        say("stdp_graph", full=full, launches_captured=64,
+            replay_equal_to_eager=True, graph_ms=t["graph_ms"], ms=t["ms"],
+            call_ms=t["call_ms"])
     # the data these calls need, averaged over the 64 spike vectors
     fill = N * tables.targets.shape[1]
     cnt = {key: [] for key in ("out", "out_plastic", "in", "in_plastic",
@@ -1448,7 +1517,7 @@ def main() -> None:
         row("lif_update", "lif_update.cu",
             "src/repro/kernels/lif_update.py:58", k1, k1_plain, k1_bytes,
             LIF_OPS * N, None, max_err["lif_update"]),
-        row("ell_deliver", "ell_deliver.cu",
+        row("ell_deliver", "lif_deliver.cu",
             "src/repro/kernels/ell_deliver.py:75", k2, k2_plain, k2_bytes,
             ENTRY_OPS * n_entries, k2_lib, max_err["ell_deliver"]),
         row("lif_deliver", "lif_deliver.cu",
@@ -1461,7 +1530,10 @@ def main() -> None:
         row("stdp_update", "stdp_update.cu",
             "src/repro/core/plasticity.py:206 (XLA, no Pallas kernel)", k5,
             k5_plain, k5_bytes, 2 * cnt["in_plastic"], None,
-            max_err["stdp_update"]),
+            max_err["stdp_update"])
+        | {"ms_full_step": k5_full["ms"],
+           "graph_ms_full_step": k5_full["graph_ms"],
+           "ms_whole_table_clip": k5_clip["ms"]},
         row("gated_spike_matvec", "spike_deliver.cu",
             "src/repro/kernels/spike_deliver.py:51", k5d, k5d_plain,
             k5d_bytes, spikes_d * Dd * Nd, k5d_lib,

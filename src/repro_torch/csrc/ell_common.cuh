@@ -1,29 +1,15 @@
-// Device pieces of the sparse-ELL spike delivery: the ordered compaction,
-// shared by ell_deliver.cu (K2, three plain launches) and spike_deliver.cu
-// (K5), and K2's scatter.  (K3 and K4 in lif_deliver.cu compact in one
+// The ordered spike-id compaction in plain launches, used by
+// spike_deliver.cu (K5).  (K2, K3 and K4 in lif_deliver.cu compact in one
 // pass by decoupled look-back instead.)
 //
-// Ordered compaction.  The reference takes jnp.nonzero(spiked, size=budget,
-// fill_value=N): the LOWEST `budget` spiking ids in ascending order, then
-// the sentinel N.  Which spikes an overflow drops is part of the result, so
-// an atomic-counter compaction (arbitrary order) would not do.  Here the
-// neurons are cut into one tile per block: each block counts its tile, and
-// in a second launch each block sums the counts of the tiles before it and
-// writes its spikes' ranks with a block-wide prefix scan.  Ranks at or past
-// `budget` are dropped.
-//
-// Scatter.  Each spiking row's K_pad (target, weight, delay-bin) entries are
-// split into chunks; a block's threads stride over a chunk and atomicAdd
-// each weight into ring[(t + dbin) % D, ch, target], ch = (sid >= n_exc)
-// (Dale's law).  Padded entries (target N, weight 0) are skipped.  The ring
-// ([D, 2, N+1] f32, 28 MB at full scale) stays in the 50 MB L2.  Float
-// atomics sum in no fixed order, so the ring agrees with the plain version
-// to a tolerance, not bit for bit; ids and overflow are exact.
+// The neurons are cut into one tile per block: each block counts its tile,
+// and in a second launch each block sums the counts of the tiles before it
+// and writes its spikes' ranks with a block-wide prefix scan, so the ids
+// come out ascending, as jnp.nonzero gives them.  Ranks at or past `budget`
+// are dropped.
 #pragma once
 
 #include "common.cuh"
-
-constexpr int kScatterChunk = 1024;   // row entries per scatter work item
 
 // Block-wide exclusive prefix sum of one int per thread (blockDim a multiple
 // of 32, at most 1024).  `smem` holds 32 ints.  Returns the exclusive
@@ -96,40 +82,5 @@ __device__ __forceinline__ void tile_write(const unsigned char* spiked,
     if (f && pos < budget) ids[pos] = i;
     rank += chunk_total;
     if (rank >= budget) break;          // uniform across the block
-  }
-}
-
-// The fill and the overflow, given the spike total: ids[total:budget] = N,
-// and *overflow = max(total - budget, 0).  Strided over the whole grid.
-__device__ __forceinline__ void compact_tail(int total, int* ids, int budget,
-                                             int n, int* overflow) {
-  const int stride = gridDim.x * blockDim.x;
-  for (int p = total + blockIdx.x * blockDim.x + threadIdx.x; p < budget;
-       p += stride)
-    ids[p] = n;
-  if (blockIdx.x == 0 && threadIdx.x == 0)
-    *overflow = total > budget ? total - budget : 0;
-}
-
-struct EllTables {
-  const int* targets;    // [N+1, k_pad], sentinel target N
-  const float* weights;  // [N+1, k_pad]
-  const int* dbins;      // [N+1, k_pad], >= 1
-  int k_pad;
-};
-
-// Scatters entries [j0, j1) of source row `sid` into the ring at phase t.
-__device__ __forceinline__ void scatter_chunk(
-    const EllTables& tb, int sid, int j0, int j1, float* ring, int t,
-    int d_bins, int n_cols, int n_exc) {
-  const int n = n_cols - 1;
-  const int ch = sid >= n_exc ? 1 : 0;
-  const size_t row = static_cast<size_t>(sid) * tb.k_pad;
-  for (int j = j0 + threadIdx.x; j < j1; j += blockDim.x) {
-    const int tg = tb.targets[row + j];
-    if (tg >= n) continue;              // padding: weight 0 into the dump
-    const int slot = (t + tb.dbins[row + j]) % d_bins;
-    const float w = tb.weights[row + j];
-    atomicAdd(ring + (static_cast<size_t>(slot) * 2 + ch) * n_cols + tg, w);
   }
 }

@@ -1,33 +1,43 @@
-// K3 and K4: the fused one-kernel simulation step, static and plastic.
+// K3 and K4: the fused one-kernel simulation step, static and plastic;
+// and K2: the spike delivery alone.
 //
 // K3 replaces the TPU kernel repro/kernels/lif_deliver.py:
 // lif_deliver_pallas (body _kernel_static :120, _deliver_row :73,
 // _lif_phase :97; pallas_call at :244), K4 its plastic twin
 // lif_deliver_plastic_pallas (body _kernel_plastic :145-190; pallas_call
-// at :316).  Both are one template, lif_deliver_kernel<kPlastic>, so the
-// compaction and the LIF phase exist once.  One launch per step: deliver
-// the previous step's spikes at ring phase t_prev, then integrate step
-// t_prev + 1 against ring slot (t_prev + 1) % D and consume that slot.
+// at :316), K2 repro/kernels/ell_deliver.py:ell_deliver_pallas (body
+// _kernel, pallas_call at :110) with the jnp.nonzero compaction of
+// repro/kernels/ops.py:54-55.  All three are one template,
+// lif_deliver_kernel<Form>, so the compaction, the scatter and the LIF
+// phase exist once.  One launch per step: deliver the previous step's
+// spikes at ring phase t_prev, then integrate step t_prev + 1 against ring
+// slot (t_prev + 1) % D and consume that slot; K2 stops after the delivery
+// (its t_prev is the step t it delivers at).
 //
 // On the TPU the grid runs in order on one core, so the LIF update can
-// simply be the last grid row.  Hopper's blocks run in parallel and in no
-// order.  Here one block of kBlock threads runs on each SM (the grid is
-// sized for the card, not for N), launched cooperatively so that every
+// simply be the last grid row, and K2's scatter goes to a ring update held
+// in VMEM, which caps the ring's size.  Hopper's blocks run in parallel and
+// in no order.  Here one block of kBlock threads runs on each SM (the grid
+// is sized for the card, not for N), launched cooperatively so that every
 // block is resident and cg::this_grid().sync() can order the phases:
-//   1. ordered compaction of spiked_prev in one pass: the neurons are cut
-//      into one tile per block; a block counts its tile, publishes the
-//      count, and finds the spikes before its tile by decoupled look-back
-//      (its first warp reads its predecessors' published words, up to
-//      kLookBack windows of 32 at once, back to the nearest one that holds
-//      an inclusive prefix), then publishes its own inclusive prefix and
-//      writes its spikes' ids at their ranks below `budget`;  | sync |
+//   1. ordered compaction of spiked_prev in one pass: the lowest `budget`
+//      spiking ids ascending, as jnp.nonzero(size=budget) gives them (which
+//      spikes an overflow drops is part of the result, so an atomic counter
+//      would not do).  The neurons are cut into one tile per block; a block
+//      counts its tile, publishes the count, and finds the spikes before its
+//      tile by decoupled look-back (its first warp reads its predecessors'
+//      published words, up to kLookBack windows of 32 at once, back to the
+//      nearest one that holds an inclusive prefix), then publishes its own
+//      inclusive prefix and writes its spikes' ids at their ranks below
+//      `budget`;                                              | sync |
 //   2. the fill (ids[total:budget] = N), the overflow, and the scatter of
 //      the real ids' rows at phase t_prev: the flat n_real x k_pad entry
 //      space is strided evenly over every thread of the grid, each thread
 //      loading kUnroll entries before it adds any (float atomics into the
-//      ring); K4 writes each plastic entry back depressed,
-//      w + (-(dep_coef * x_post[target])), after scattering the weight it
-//      read;                                                  | sync |
+//      ring, ch = sid >= n_exc by Dale's law, padding skipped); K4 writes
+//      each plastic entry back depressed, w + (-(dep_coef *
+//      x_post[target])), after scattering the weight it read.  K2 ends
+//      here;                                                  | sync |
 //   3. LIF update of every neuron against slot (t_prev+1) % D, zeroing
 //      both channel rows of that slot (the dump column included), and
 //      the new spike vector; K4 also decays the pair-STDP traces and bumps
@@ -38,17 +48,19 @@
 // land in the slot that the LIF pass reads and zeroes.  The first one
 // feeds the even split, which needs every block's ids.  (A hand-written
 // barrier, one counter by red.release / ld.acquire, measured no faster
-// than grid.sync() on an H100; PERF.md.)
+// than grid.sync() on an H100; PERF.md.)  Float atomics add in no fixed
+// order, so the ring agrees with the plain version to a tolerance; ids,
+// overflow, spikes, V and refrac are exact.
 //
 // The look-back words live in a workspace that persists across launches
-// (the wrapper keeps one per device and grid, zeroed once): [0] the launch
-// count (the epoch), [1 + b] block b's word,
+// of all three forms (the wrapper keeps one per device and grid, zeroed
+// once): [0] the launch count (the epoch), [1 + b] block b's word,
 // (epoch tag << 2 | kind) << 32 | value.  Every word read is checked
 // against this launch's epoch, so no pass resets them; the kernel itself
-// advances the epoch after its last sync, never the host, so a replayed
-// CUDA graph stays right.  The look-back's spin counts its rounds and
-// traps past kSpinLimit, so a fault ends as a CUDA error that the wrapper
-// raises rather than as a hang.
+// advances the epoch once every block has read it (after the first sync),
+// never the host, so a replayed CUDA graph stays right.  The look-back's
+// spin counts its rounds and traps past kSpinLimit, so a fault ends as a
+// CUDA error that the wrapper raises rather than as a hang.
 //
 // There is no VMEM-style residency cap: the ring ([D, 2, N+1] f32, 28 MB
 // at full scale) is updated in place in device memory and stays in L2,
@@ -56,12 +68,13 @@
 // is read and written by one thread, so there is no race).  K4 leaves the
 // potentiation and the clip to stdp_update.cu, which takes the ids K4
 // wrote.  Bound: K1's 45 B per neuron, the consumed slot, and K2's
-// spiking rows (about 6.4 MB per step at full scale); K4 adds the rows'
-// plastic mask, the depressed entries' write-back and 20 B of traces per
-// neuron; memory-bound.  At 25 spikes a step the time is not the bytes
-// but a chain of memory round trips and the two syncs (PERF.md's phase
-// table).  If the card refuses the cooperative launch the wrapper raises;
-// it never falls back to K2 + K1.
+// spiking rows (about 6.4 MB per step at full scale; K2 alone: the spike
+// vector and the rows, about 2 MB); K4 adds the rows' plastic mask, the
+// depressed entries' write-back and 20 B of traces per neuron;
+// memory-bound.  At 25 spikes a step the time is not the bytes but a chain
+// of memory round trips and the syncs (PERF.md's phase tables).  If the
+// card refuses the cooperative launch the wrapper raises; it never falls
+// back to K2 + K1.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -86,6 +99,9 @@ constexpr long long kSpinLimit = 1ll << 22;
 constexpr int kStamps = 8;
 constexpr unsigned kAggregate = 1, kPrefix = 2;   // a look-back word's kind
 constexpr unsigned kFull = 0xffffffffu;
+
+// The kernel's three forms: K3, K4, and K2 (phases 1 and 2 alone).
+enum class Form { kStep, kPlasticStep, kDeliver };
 
 struct StepConst {                    // the same for every step of a session
   const int* targets;                 // [N+1, k_pad], sentinel target N
@@ -242,8 +258,9 @@ __device__ __forceinline__ int look_back(const unsigned long long* words,
   return before;
 }
 
-template <bool kPlastic, bool kStamped>
+template <Form kForm, bool kStamped>
 __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
+  constexpr bool kPlastic = kForm == Form::kPlasticStep;
   const StepConst& k = a.k;
   const StepIO& io = a.io;
   __shared__ int warp_total[kWarps];
@@ -294,6 +311,8 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   stamp<kStamped>(io.stamps, 3);
   grid.sync();
   stamp<kStamped>(io.stamps, 4);
+  // every block read the epoch before the sync
+  if (g == 0) k.ws[0] = launch_no + 1;
 
   // 2. the fill, the overflow and the scatter, split by entries
   const int total = static_cast<int>(ld_relaxed(words + G - 1) & 0xffffffffu);
@@ -340,10 +359,9 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
     }
   }
   stamp<kStamped>(io.stamps, 5);
+  if constexpr (kForm == Form::kDeliver) return;
   grid.sync();
   stamp<kStamped>(io.stamps, 6);
-  // every block read the epoch before its first grid.sync()
-  if (g == 0) k.ws[0] = launch_no + 1;
 
   // 3. LIF update against the just-delivered slot, which it then consumes
   const int slot = (io.t_prev + 1) % k.d_bins;
@@ -367,7 +385,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   stamp<kStamped>(io.stamps, 7);
 }
 
-template <bool kPlastic, bool kStamped>
+template <Form kForm, bool kStamped>
 int launch(const StepConst* k, const StepIO& io, void* stream) {
   StepArgs a{*k, io};
   cudaLaunchConfig_t cfg = {};
@@ -380,7 +398,7 @@ int launch(const StepConst* k, const StepIO& io, void* stream) {
   cfg.attrs = coop;
   cfg.numAttrs = 1;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, lif_deliver_kernel<kPlastic, kStamped>, a);
+      cudaLaunchKernelEx(&cfg, lif_deliver_kernel<kForm, kStamped>, a);
   // cudaGetLastError() also clears a refused launch's error, so the next
   // launch does not report it as its own.
   const cudaError_t last = cudaGetLastError();
@@ -389,20 +407,22 @@ int launch(const StepConst* k, const StepIO& io, void* stream) {
 
 }  // namespace
 
-// The grid of K3 and K4 on this card: one block per SM (fewer when the
+// The grid of K2, K3 and K4 on this card: one block per SM (fewer when the
 // ring has fewer than kMinColumns columns per SM).  Returns -1 when the card
 // has no cooperative launch, -2 when a block does not fit on an SM.
 EXPORT int lif_deliver_grid(int n_cols, int* grid_out) {
-  int dev = 0, coop = 0, sms = 0, fit = 0, fit_pl = 0;
+  int dev = 0, coop = 0, sms = 0, fit = 0, fit_pl = 0, fit_dl = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (!coop) return -1;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &fit, lif_deliver_kernel<false, true>, kBlock, 0);
+      &fit, lif_deliver_kernel<Form::kStep, true>, kBlock, 0);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &fit_pl, lif_deliver_kernel<true, true>, kBlock, 0);
-  if (std::min(fit, fit_pl) < 1) return -2;
+      &fit_pl, lif_deliver_kernel<Form::kPlasticStep, true>, kBlock, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &fit_dl, lif_deliver_kernel<Form::kDeliver, true>, kBlock, 0);
+  if (std::min({fit, fit_pl, fit_dl}) < 1) return -2;
   *grid_out = std::min(sms, (n_cols + kMinColumns - 1) / kMinColumns);
   return static_cast<int>(cudaGetLastError());
 }
@@ -442,7 +462,7 @@ EXPORT int lif_deliver_stamps() { return kStamps; }
 EXPORT int lif_deliver_launch(const StepConst* k, STEP_IO_PARAMS,
                               void* stream) {
   STEP_IO;
-  return launch<false, false>(k, io, stream);
+  return launch<Form::kStep, false>(k, io, stream);
 }
 
 // K4: K3's arguments (k->weights: the live table, updated in place), then
@@ -451,7 +471,7 @@ EXPORT int lif_deliver_plastic_launch(const StepConst* k, STEP_IO_PARAMS,
                                       PLASTIC_PARAMS, void* stream) {
   STEP_IO;
   PLASTIC_IO;
-  return launch<true, false>(k, io, stream);
+  return launch<Form::kPlasticStep, false>(k, io, stream);
 }
 
 // The stamped instantiations, for chip_smoke.py's phase table: as above,
@@ -462,7 +482,7 @@ EXPORT int lif_deliver_stamped_launch(const StepConst* k, STEP_IO_PARAMS,
                                       void* stream) {
   STEP_IO;
   io.stamps = stamps;
-  return launch<false, true>(k, io, stream);
+  return launch<Form::kStep, true>(k, io, stream);
 }
 
 EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
@@ -472,5 +492,31 @@ EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
   STEP_IO;
   PLASTIC_IO;
   io.stamps = stamps;
-  return launch<true, true>(k, io, stream);
+  return launch<Form::kPlasticStep, true>(k, io, stream);
+}
+
+// K2: phases 1 and 2 alone, on the workspace that K3 and K4 use.  `k` is a
+// pack of the session's tables, sizes and workspace (its propagators and
+// pmask unused); delivers `spiked` at phase t into `ring`, writes the ids
+// and the overflow.
+#define DELIVER_IO                                                          \
+  StepIO io{spiked,  ring,    nullptr, nullptr, nullptr, nullptr, nullptr,  \
+            nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ids,      \
+            overflow, nullptr, nullptr, nullptr, nullptr, nullptr, t, 0}
+
+EXPORT int ell_deliver_launch(const StepConst* k,
+                              const unsigned char* spiked, float* ring,
+                              int* ids, int* overflow, int t, void* stream) {
+  DELIVER_IO;
+  return launch<Form::kDeliver, false>(k, io, stream);
+}
+
+EXPORT int ell_deliver_stamped_launch(const StepConst* k,
+                                      const unsigned char* spiked,
+                                      float* ring, int* ids, int* overflow,
+                                      int t, unsigned long long* stamps,
+                                      void* stream) {
+  DELIVER_IO;
+  io.stamps = stamps;
+  return launch<Form::kDeliver, true>(k, io, stream);
 }

@@ -14,8 +14,8 @@
 // block of presynaptic spikes is all zero.  At natural rates about 80 % of
 // the blocks of 512 hold no spike and are skipped, so it still reads about
 // a fifth of W each step.  Here the gate is the presynaptic row itself:
-// an ordered compaction of the spiking ids (K2's tile counts and block
-// prefix scans, ell_common.cuh, but sized to P with no budget: the dense
+// an ordered compaction of the spiking ids (tile counts and block prefix
+// scans, ell_common.cuh, sized to P with no budget: the dense
 // strategy has no overflow, and no spike is ever dropped), then one thread
 // per output (d, n), coalesced over n, that reads only the spiking rows.
 //

@@ -8,8 +8,8 @@ file name carries a hash of the sources and flags, so an edited source is
 rebuilt, never reused stale.  All sources are compiled together, one
 ``nvcc`` process each, started at once.
 
-``launches`` holds one plain integer per kernel (``KERNELS``; K3 and K4 are
-two instantiations of one template in one library, K5,
+``launches`` holds one plain integer per kernel (``KERNELS``; K2, K3 and K4
+are three forms of one template in one library, ``lif_deliver``, K5,
 ``gated_spike_matvec``, lives in ``spike_deliver``, and K6,
 ``flash_attention``, is two kernels: bfloat16 on the tensor cores in
 ``flash_attention_sm90``, float32 on the CUDA cores in
@@ -36,7 +36,6 @@ BUILD_DIR = _PKG.parent.parent / "build" / "kernels"
 #: library name -> its source in csrc/
 SOURCES = {
     "lif_update": "lif_update.cu",
-    "ell_deliver": "ell_deliver.cu",
     "lif_deliver": "lif_deliver.cu",
     "stdp_update": "stdp_update.cu",
     "spike_deliver": "spike_deliver.cu",
@@ -44,7 +43,7 @@ SOURCES = {
     "flash_attention_sm90": "flash_attention_sm90.cu",
 }
 #: kernel name -> the libraries that hold it
-KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("ell_deliver",),
+KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("lif_deliver",),
            "lif_deliver": ("lif_deliver",),
            "lif_deliver_plastic": ("lif_deliver",),
            "stdp_update": ("stdp_update",),

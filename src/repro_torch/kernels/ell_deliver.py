@@ -1,5 +1,5 @@
-"""K2: sparse-ELL spike delivery (``csrc/ell_deliver.cu``) and its plain
-version.
+"""K2: sparse-ELL spike delivery (the delivery-only form of the fused
+step's kernel, ``csrc/lif_deliver.cu``) and its plain version.
 
 Replaces ``repro/kernels/ell_deliver.py:ell_deliver_pallas`` together with
 the id compaction of ``repro/kernels/ops.py:ell_deliver``.  The step's
@@ -14,16 +14,20 @@ reference's ``deliver_event`` order (s-major, k-minor) through
 ``index_add_``; the CUDA kernel adds with float atomics in no fixed order,
 so on the card the ring agrees with the plain version to a tolerance,
 while ids and overflow are exact.  Neither reads anything back to the host.
+
+On the card a call is one cooperative launch (``lif_deliver.deliver``):
+the ordered compaction by decoupled look-back over the workspace that K3
+and K4 use, a grid sync, then the scatter split evenly by entries.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
 
-_I, _P = ctypes.c_int, ctypes.c_void_p
+#: what lies between a block's consecutive stamps of K2's stamped launch
+#: (``lif_deliver.stamps_buffer``): the fused step's first five phases
+PHASES = ("count", "look_back", "write_ids", "barrier_1", "scatter")
 
 
 def compact_ids_plain(spiked: torch.Tensor, budget: int):
@@ -68,42 +72,22 @@ def ell_deliver_plain(ring, targets, weights, dbins, spiked, t: int,
     return ring, ids, overflow
 
 
-def _lib():
-    lib = _build.library("ell_deliver")
-    if not getattr(lib, "_typed", False):
-        lib.ell_compact_tile.restype = ctypes.c_int
-        lib.ell_deliver_launch.restype = ctypes.c_int
-        lib.ell_deliver_launch.argtypes = (
-            [_P, _I, _P, _P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P])
-        lib._typed = True
-    return lib
-
-
 def ell_deliver(ring, targets, weights, dbins, spiked, t: int, n_exc: int,
-                budget: int):
+                budget: int, *, stamps=None):
     """Returns ``(ring, ids, overflow)``; ``ring`` [D, 2, N+1] f32 is
-    updated in place, tables are ``[N+1, K_pad]`` with sentinel row N."""
+    updated in place, tables are ``[N+1, K_pad]`` with sentinel row N.
+    ``stamps`` (``lif_deliver.stamps_buffer``, on the card only) selects
+    the stamped kernel, for a phase table."""
     if ring.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("ell_deliver: stamps are the kernel's, on the "
+                             "card")
         return ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
                                  n_exc, budget)
-    _check_inputs("ell_deliver", ring, targets, weights, dbins, spiked)
-    n = spiked.shape[0]
-    lib = _lib()
-    tile = lib.ell_compact_tile()
-    counts = torch.empty(max(1, -(-n // tile)), dtype=torch.int32,
-                         device=ring.device)
-    ids = torch.empty(budget, dtype=torch.int32, device=ring.device)
-    overflow = torch.empty((), dtype=torch.int32, device=ring.device)
-    D = ring.shape[0]
-    code = lib.ell_deliver_launch(
-        _build.ptr(spiked), _I(n), _build.ptr(counts), _build.ptr(ids),
-        _I(budget), _build.ptr(overflow), _build.ptr(targets),
-        _build.ptr(weights), _build.ptr(dbins), _I(targets.shape[1]),
-        _build.ptr(ring), _I(int(t)), _I(D), _I(n_exc),
-        _build.stream_of(ring))
-    _build.launches["ell_deliver"] += 1
-    _build.check(lib, code, "ell_deliver")
-    return ring, ids, overflow
+    # imported here: lif_deliver imports this module's plain versions
+    from repro_torch.kernels import lif_deliver
+    return lif_deliver.deliver(ring, targets, weights, dbins, spiked, t,
+                               n_exc=n_exc, budget=budget, stamps=stamps)
 
 
 def _check_inputs(what, ring, targets, weights, dbins, spiked):

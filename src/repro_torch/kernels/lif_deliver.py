@@ -20,7 +20,9 @@ extra step there.
 
 On the card each step is one cooperative launch of one block per SM:
 a single-pass compaction by decoupled look-back, a grid sync, the scatter
-split evenly by entries, a grid sync, the LIF update (see the source).  The
+split evenly by entries, a grid sync, the LIF update (see the source).  K2
+(``kernels/ell_deliver``) is a third form of the same kernel that stops
+after the scatter (:func:`deliver`), on the same workspace.  The
 grid is asked once per device and network size; a card without
 cooperative launch makes the wrapper raise -- it never falls back to K2 +
 K1.  The ring is updated in place.  What stays the same from step to step
@@ -39,6 +41,7 @@ import torch
 
 from repro_torch.core.neuron import Propagators
 from repro_torch.kernels import _build
+from repro_torch.kernels import ell_deliver as K2
 from repro_torch.kernels.ell_deliver import (_check_inputs,
                                              ell_deliver_plain)
 from repro_torch.kernels.lif_update import lif_update_plain
@@ -48,9 +51,9 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 _grid: dict = {}
 _workspaces: dict = {}
-#: what lies between a block's consecutive stamps (``stamps_buffer``)
-PHASES = ("count", "look_back", "write_ids", "barrier_1", "scatter",
-          "barrier_2", "lif")
+#: what lies between a block's consecutive stamps (``stamps_buffer``); K2
+#: stops after the first five
+PHASES = K2.PHASES + ("barrier_2", "lif")
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
@@ -105,15 +108,16 @@ class StepConst(ctypes.Structure):
                 ("dep_coef", _F), ("decay_p", _F), ("decay_m", _F)]
 
 
-def step_const(ptrs: tuple, sizes: tuple, prop: Propagators,
-               coef) -> StepConst:
+def step_const(ptrs: tuple, sizes: tuple, prop, coef) -> StepConst:
     """The pack of ``ptrs`` (targets, weights, dbins, pmask, workspace:
     device addresses, 0 for none), ``sizes`` (k_pad, n, n_exc, d_bins,
-    budget, grid), the propagators and, for K4, the STDP coefficients."""
+    budget, grid), the propagators (None for K2: zeros) and, for K4, the
+    STDP coefficients."""
+    lif = (prop.P11_ex, prop.P11_in, prop.P22, prop.P21_ex, prop.P21_in,
+           prop.P20, prop.V_th, prop.V_reset, prop.E_L, prop.ref_steps) \
+        if prop else (0,) * 10
     plastic = (coef.dep, coef.decay_p, coef.decay_m) if coef else (0, 0, 0)
-    return StepConst(*ptrs, *sizes, prop.P11_ex, prop.P11_in, prop.P22,
-                     prop.P21_ex, prop.P21_in, prop.P20, prop.V_th,
-                     prop.V_reset, prop.E_L, prop.ref_steps, *plastic)
+    return StepConst(*ptrs, *sizes, *lif, *plastic)
 
 
 #: ``step_const`` cached by its inputs, all plain values, so that a hit is
@@ -122,10 +126,11 @@ _cached_step_const = functools.lru_cache(maxsize=32)(step_const)
 
 
 def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
-                 d_bins: int, budget: int, grid: int, prop: Propagators,
-                 coef) -> StepConst:
+                 d_bins: int, budget: int, grid: int, prop, coef
+                 ) -> StepConst:
     """The cached pack of a session's tables (``pmask`` and ``coef`` None
-    for K3), workspace and sizes, as a launch takes it."""
+    for K3 and K2, ``prop`` None for K2), workspace and sizes, as a launch
+    takes it."""
     return _cached_step_const(
         (targets.data_ptr(), weights.data_ptr(), dbins.data_ptr(),
          0 if pmask is None else pmask.data_ptr(), ws.data_ptr()),
@@ -134,6 +139,7 @@ def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
 
 _IO_ARGTYPES = [_P] + [_P] * 15 + [_I]          # pack, tensors, t_prev
 _PLASTIC_ARGTYPES = [_P] * 4 + [_I]             # traces in and out, trace
+_DELIVER_ARGTYPES = [_P] * 5 + [_I]             # pack, K2's tensors, t
 
 
 def _lib():
@@ -143,7 +149,8 @@ def _lib():
                    "lif_deliver_workspace_words", "lif_deliver_stamps",
                    "lif_deliver_launch", "lif_deliver_plastic_launch",
                    "lif_deliver_stamped_launch",
-                   "lif_deliver_plastic_stamped_launch"):
+                   "lif_deliver_plastic_stamped_launch", "ell_deliver_launch",
+                   "ell_deliver_stamped_launch"):
             getattr(lib, fn).restype = ctypes.c_int
         lib.lif_deliver_grid.argtypes = [_I, _P]
         lib.lif_deliver_const_bytes.argtypes = []
@@ -155,6 +162,8 @@ def _lib():
         lib.lif_deliver_stamped_launch.argtypes = _IO_ARGTYPES + [_P, _P]
         lib.lif_deliver_plastic_stamped_launch.argtypes = (
             _IO_ARGTYPES + _PLASTIC_ARGTYPES + [_P, _P])
+        lib.ell_deliver_launch.argtypes = _DELIVER_ARGTYPES + [_P]
+        lib.ell_deliver_stamped_launch.argtypes = _DELIVER_ARGTYPES + [_P, _P]
         if lib.lif_deliver_const_bytes() != ctypes.sizeof(StepConst):
             raise RuntimeError(
                 f"lif_deliver: the C StepConst has "
@@ -232,26 +241,35 @@ def _check_stamps(what, stamps, ring, n_cols):
                          f"{list(want)} on {ring.device})")
 
 
+def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
+          budget, prop, coef):
+    """Checks the delivery's inputs; returns the session's cached pack."""
+    _check_inputs(what, ring, targets, weights, dbins, spiked)
+    k_pad = targets.shape[1]
+    if budget * k_pad >= 2 ** 30:
+        raise ValueError(f"{what}: budget x k_pad = {budget * k_pad} "
+                         f"entries; the kernel counts them in 32 bits")
+    n = spiked.shape[0]
+    dev = ring.device
+    grid = cooperative_grid(dev, n + 1)
+    return session_pack(targets, weights, dbins, pmask, workspace(dev, grid),
+                        n=n, n_exc=n_exc, d_bins=ring.shape[0], budget=budget,
+                        grid=grid, prop=prop, coef=coef)
+
+
 def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
                  V, I_ex, I_in, refrac, ext_ex, i_dc, t_prev, n_exc, budget,
                  prop, coef):
     """Checks K3's or K4's inputs and allocates the outputs; returns them
     with the C arguments that K3 and K4 share: the session's cached pack,
     then this step's tensors and ``t_prev``."""
-    _check_inputs(what, ring, targets, weights, dbins, spiked_prev)
     _build.require_cuda(what, ring, V, I_ex, I_in, refrac, ext_ex, i_dc)
     if budget < 1:
         raise ValueError("the fused step needs spike_budget >= 1")
-    k_pad = targets.shape[1]
-    if budget * k_pad >= 2 ** 30:
-        raise ValueError(f"{what}: budget x k_pad = {budget * k_pad} "
-                         f"entries; the kernel counts them in 32 bits")
+    pack = _pack(what, ring, targets, weights, dbins, pmask, spiked_prev,
+                 n_exc, budget, prop, coef)
     n = V.shape[0]
     dev = ring.device
-    grid = cooperative_grid(dev, n + 1)
-    pack = session_pack(targets, weights, dbins, pmask, workspace(dev, grid),
-                        n=n, n_exc=n_exc, d_bins=ring.shape[0], budget=budget,
-                        grid=grid, prop=prop, coef=coef)
     Vo, Iexo, Iino = (torch.empty_like(V) for _ in range(3))
     refo = torch.empty_like(refrac)
     spk = torch.empty(n, dtype=torch.bool, device=dev)
@@ -338,3 +356,29 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
     _build.check(lib, code, "lif_deliver_plastic (cooperative launch)")
     return (ring, weights, Vo, Iexo, Iino, refo, spk, x_pre_o, x_post_o, ids,
             overflow)
+
+
+def deliver(ring, targets, weights, dbins, spiked, t: int, *, n_exc: int,
+            budget: int, stamps=None):
+    """K2 on the card: the kernel's delivery-only form, one cooperative
+    launch.  Returns ``(ring, ids, overflow)``; ``ring`` is updated in
+    place (see ``ell_deliver.ell_deliver``).  ``stamps`` as for
+    :func:`lif_deliver`; the launch writes the first ``len(K2.PHASES) + 1``
+    of each block's stamps."""
+    pack = _pack("ell_deliver", ring, targets, weights, dbins, None, spiked,
+                 n_exc, budget, None, None)
+    ids = torch.empty(budget, dtype=torch.int32, device=ring.device)
+    overflow = torch.empty((), dtype=torch.int32, device=ring.device)
+    c_args = (ctypes.addressof(pack), spiked.data_ptr(), ring.data_ptr(),
+              ids.data_ptr(), overflow.data_ptr(), int(t))
+    lib = _lib()
+    stream = _build.stream_of(ring)
+    if stamps is None:
+        code = lib.ell_deliver_launch(*c_args, stream)
+    else:
+        _check_stamps("ell_deliver", stamps, ring, ring.shape[2])
+        code = lib.ell_deliver_stamped_launch(*c_args, stamps.data_ptr(),
+                                              stream)
+    _build.launches["ell_deliver"] += 1
+    _build.check(lib, code, "ell_deliver (cooperative launch)")
+    return ring, ids, overflow

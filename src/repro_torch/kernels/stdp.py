@@ -25,10 +25,19 @@ place; ``in_syn`` indexes it as ``row * K + col`` (the fill ``N * K`` is a
 weight-0 entry of the sentinel row), so a synapse's source is
 ``in_syn // K``.  The kernel equals the plain version bit for bit (see the
 source).
+
+On the card each call is one launch of one block per SM, in which every
+touched entry has one owner (the IN pass takes an OUT entry whose target is
+among the ids, the OUT pass the rest; ``among_ids``), so a step needs no
+grid barrier; only the whole-table clip waits for one, and only that form
+is launched cooperatively.  The C argument pack of the tables, sizes,
+coefficients and grid (``StdpConst``) is built once per session and cached
+by its inputs.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,7 +48,7 @@ _I, _F, _P = ctypes.c_int, ctypes.c_float, ctypes.c_void_p
 
 _grid: dict = {}
 #: what lies between a block's consecutive stamps (``stamps_buffer``)
-PHASES = ("depress_traces", "barrier_1", "potentiate", "barrier_2", "clip")
+PHASES = ("load_ids", "update", "whole_table_clip")
 
 
 class StdpCoef(NamedTuple):
@@ -58,6 +67,14 @@ def _row_entries(k: int, ids: torch.Tensor) -> torch.Tensor:
             + torch.arange(k, device=ids.device))
 
 
+def among_ids(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """Whether each neuron of ``x`` is one of the step's ``ids`` (ascending,
+    then the sentinel ``n``): the kernel's binary search.  A neuron that
+    spiked but was cut by the budget is not among them."""
+    at = torch.searchsorted(ids, x.to(ids.dtype)).clamp(max=ids.shape[0] - 1)
+    return (ids[at] == x) & (x < n)
+
+
 def depress_plain(weights, targets, pmask, x_post, ids, dep: float) -> None:
     """Depress the plastic entries of the OUT rows ``ids``, in place."""
     e = _row_entries(weights.shape[1], ids)
@@ -68,32 +85,9 @@ def depress_plain(weights, targets, pmask, x_post, ids, dep: float) -> None:
     wf[e] = torch.where(pmask.view(-1)[e], w + -(dep * x_post[tg]), w)
 
 
-def potentiate_plain(weights, in_syn, pmask_in, x_pre, ids,
-                     pot: float) -> None:
-    """Potentiate the plastic entries of the IN rows ``ids``, in place."""
-    rows = ids.to(torch.int64)
-    syn = in_syn[rows].to(torch.int64)
-    src = torch.div(syn, weights.shape[1], rounding_mode="floor")
-    src = src.clamp(max=x_pre.shape[0] - 1)
-    wf = weights.view(-1)
-    w = wf[syn]
-    wf[syn] = torch.where(pmask_in[rows], w + pot * x_pre[src], w)
-
-
-def clip_plain(weights, pmask, in_syn, pmask_in, ids, w_max: float,
-               clip_all: bool) -> None:
-    """Clip plastic entries to ``[0, w_max]`` in place: those of the OUT
-    and IN rows ``ids``, or with ``clip_all`` every one."""
-    if clip_all:
-        weights.copy_(torch.where(pmask, weights.clamp(0.0, w_max),
-                                  weights))
-        return
-    wf = weights.view(-1)
-    rows = ids.to(torch.int64)
-    for e, m in ((_row_entries(weights.shape[1], ids), pmask[rows]),
-                 (in_syn[rows].to(torch.int64), pmask_in[rows])):
-        w = wf[e]
-        wf[e] = torch.where(m, w.clamp(0.0, w_max), w)
+def clip_plain(weights, pmask, w_max: float) -> None:
+    """Clip every plastic entry to ``[0, w_max]``, in place."""
+    weights.copy_(torch.where(pmask, weights.clamp(0.0, w_max), weights))
 
 
 def traces_plain(x_pre, x_post, spiked, decay_p: float, decay_m: float):
@@ -107,37 +101,108 @@ def stdp_update_plain(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
                       clip_all: bool):
     """Returns ``(weights, x_pre', x_post')``; ``weights`` is updated in
     place.  ``x_post`` and ``spiked`` are read only with ``full`` (they may
-    be None without it), and without it the traces come back as given."""
+    be None without it), and without it the traces come back as given.
+
+    Each touched entry gets its final value from the weights before the
+    call, from its one owner, as the kernel computes it: the OUT pass owns
+    the plastic entries of the ids' OUT rows whose target is not among the
+    ids (depressed with ``full``, then clipped); the IN pass owns the
+    plastic entries of the ids' IN rows (depressed with ``full`` when their
+    source is among the ids, potentiated, clipped).  That is ``stdp_step``'s
+    depression, potentiation and clip of the touched entries, in its order.
+    """
+    n, k = x_pre.shape[0], weights.shape[1]
+    wf = weights.view(-1)
+    rows = ids.to(torch.int64)
+    last = lambda i: i.clamp(max=n - 1)    # keeps padding's gathers legal
+    e_out = _row_entries(k, ids)
+    tg = targets.view(-1)[e_out].to(torch.int64)
+    own_out = pmask.view(-1)[e_out] & ~among_ids(tg, ids, n)
+    w_out = wf[e_out]
+    v_out = w_out + -(coef.dep * x_post[last(tg)]) if full else w_out
+    syn = in_syn[rows].to(torch.int64)
+    src = torch.div(syn, k, rounding_mode="floor")
+    w_in = wf[syn]
+    v_in = w_in
     if full:
-        depress_plain(weights, targets, pmask, x_post, ids, coef.dep)
-    potentiate_plain(weights, in_syn, pmask_in, x_pre, ids, coef.pot)
-    clip_plain(weights, pmask, in_syn, pmask_in, ids, coef.w_max, clip_all)
+        v_in = torch.where(among_ids(src, ids, n),
+                           v_in + -(coef.dep * x_post[last(rows)][:, None]),
+                           v_in)
+    v_in = v_in + coef.pot * x_pre[last(src)]
+    # an entry owned by neither pass is written back as it was
+    wf[e_out] = torch.where(own_out, v_out.clamp(0.0, coef.w_max), w_out)
+    wf[syn] = torch.where(pmask_in[rows], v_in.clamp(0.0, coef.w_max), w_in)
+    if clip_all:
+        clip_plain(weights, pmask, coef.w_max)
     if full:
         x_pre, x_post = traces_plain(x_pre, x_post, spiked, coef.decay_p,
                                      coef.decay_m)
     return weights, x_pre, x_post
 
 
+class StdpConst(ctypes.Structure):
+    """``StdpConst`` of ``csrc/stdp_update.cu``: what stays the same from
+    step to step of a session, handed to the launch by pointer."""
+    _fields_ = [("targets", _P), ("pmask", _P), ("w", _P), ("in_syn", _P),
+                ("pmask_in", _P), ("n", _I), ("k", _I), ("k_in", _I),
+                ("budget", _I), ("grid", _I), ("dep", _F), ("pot", _F),
+                ("decay_p", _F), ("decay_m", _F), ("w_max", _F)]
+
+
+def stdp_const(ptrs: tuple, sizes: tuple, coef: StdpCoef) -> StdpConst:
+    """The pack of ``ptrs`` (targets, pmask, weights, in_syn, pmask_in:
+    device addresses), ``sizes`` (n, k, k_in, budget, grid) and the STDP
+    coefficients."""
+    return StdpConst(*ptrs, *sizes, *coef)
+
+
+#: ``stdp_const`` cached by its inputs, all plain values, so that a hit is
+#: the pack those inputs build; the wrapper never writes into a pack
+_cached_stdp_const = functools.lru_cache(maxsize=32)(stdp_const)
+
+
+def session_pack(weights, targets, pmask, in_syn, pmask_in, *, n: int,
+                 budget: int, grid: int, coef: StdpCoef) -> StdpConst:
+    """The cached pack of a session's tables, sizes and coefficients, as a
+    launch takes it."""
+    return _cached_stdp_const(
+        tuple(t.data_ptr() for t in (targets, pmask, weights, in_syn,
+                                     pmask_in)),
+        (n, weights.shape[1], in_syn.shape[1], budget, grid), coef)
+
+
 def _lib():
     lib = _build.library("stdp_update")
     if not getattr(lib, "_typed", False):
-        lib.stdp_update_grid.restype = ctypes.c_int
+        for fn in ("stdp_update_grid", "stdp_update_const_bytes",
+                   "stdp_update_stamps", "stdp_update_launch",
+                   "stdp_update_stamped_launch"):
+            getattr(lib, fn).restype = ctypes.c_int
         lib.stdp_update_grid.argtypes = [_P]
-        args = ([_P, _I, _P, _P, _P, _I, _P, _P, _I] + [_P] * 5 + [_I] * 3
-                + [_F] * 5)
-        lib.stdp_update_stamps.restype = ctypes.c_int
+        lib.stdp_update_const_bytes.argtypes = []
         lib.stdp_update_stamps.argtypes = []
-        lib.stdp_update_launch.restype = ctypes.c_int
-        lib.stdp_update_launch.argtypes = args + [_I, _P]
-        lib.stdp_update_stamped_launch.restype = ctypes.c_int
-        lib.stdp_update_stamped_launch.argtypes = args + [_P, _I, _P]
+        io = [_P] * 7 + [_I, _I]            # pack, tensors, full, clip_all
+        lib.stdp_update_launch.argtypes = io + [_P]
+        lib.stdp_update_stamped_launch.argtypes = io + [_P, _P]
+        if lib.stdp_update_const_bytes() != ctypes.sizeof(StdpConst):
+            raise RuntimeError(
+                f"stdp_update: the C StdpConst has "
+                f"{lib.stdp_update_const_bytes()} bytes, its ctypes mirror "
+                f"{ctypes.sizeof(StdpConst)}")
         lib._typed = True
     return lib
 
 
-def cooperative_grid(device: torch.device) -> int:
-    """Blocks of the cooperative launch on ``device``."""
-    if device.index not in _grid:
+def _index(device: torch.device) -> int:
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
+def launch_grid(device: torch.device) -> int:
+    """Blocks of the kernel's launch on ``device``: one per SM."""
+    key = _index(device)
+    if key not in _grid:
         lib = _lib()
         out = ctypes.c_int(0)
         with torch.cuda.device(device):
@@ -145,12 +210,14 @@ def cooperative_grid(device: torch.device) -> int:
         if code == -1:
             raise RuntimeError(
                 f"{torch.cuda.get_device_name(device)} has no cooperative "
-                f"launch: the stdp_update kernel cannot run")
+                f"launch: the stdp_update kernel's whole-table clip cannot "
+                f"run")
+        if code == -2:
+            raise RuntimeError("stdp_update: no block of the kernel fits "
+                               "on an SM")
         _build.check(lib, code, "stdp_update_grid")
-        if out.value < 1:
-            raise RuntimeError("stdp_update: no block fits on an SM")
-        _grid[device.index] = out.value
-    return _grid[device.index]
+        _grid[key] = out.value
+    return _grid[key]
 
 
 def stamps_buffer(device: torch.device) -> torch.Tensor:
@@ -158,23 +225,12 @@ def stamps_buffer(device: torch.device) -> torch.Tensor:
     passed as ``stamps=`` to :func:`stdp_update`, it selects the kernel's
     stamped instantiation, where each block writes its ``%globaltimer``
     (ns) at its start and at the end of each of ``PHASES``."""
-    return torch.zeros(cooperative_grid(device), _lib().stdp_update_stamps(),
+    return torch.zeros(launch_grid(device), _lib().stdp_update_stamps(),
                        dtype=torch.int64, device=device)
 
 
-def stdp_update(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
-                x_post, spiked, coef: StdpCoef, *, full: bool,
-                clip_all: bool, stamps=None):
-    """Returns ``(weights, x_pre', x_post')``; see
-    :func:`stdp_update_plain`.  ``stamps`` (a ``stamps_buffer``, on the
-    card only) selects the stamped kernel, for a phase table."""
-    args = (weights, targets, pmask, in_syn, pmask_in, ids, x_pre, x_post,
-            spiked)
-    if weights.device.type == "cpu":
-        if stamps is not None:
-            raise ValueError("stdp_update: stamps are the kernel's, on the "
-                             "card")
-        return stdp_update_plain(*args, coef, full=full, clip_all=clip_all)
+def _check(weights, targets, pmask, in_syn, pmask_in, ids, x_pre, x_post,
+           spiked, full: bool, stamps) -> None:
     _build.require_cuda("stdp_update", weights, targets, pmask, in_syn,
                         pmask_in, ids, x_pre,
                         *((x_post, spiked) if full else ()))
@@ -194,26 +250,50 @@ def stdp_update(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
             or in_syn.shape != pmask_in.shape or in_syn.shape[0] != n + 1:
         raise ValueError("stdp_update: tables must be [N+1, K] and "
                          "[N+1, K_in] with N = len(x_pre)")
-    if (n + 1) * k >= 2 ** 31:
-        raise ValueError("stdp_update: the table exceeds int32 indexing")
+    if (n + 1) * max(k, k_in) >= 2 ** 31 \
+            or ids.shape[0] * (k + k_in) >= 2 ** 30:
+        raise ValueError("stdp_update: the tables or the ids' entries "
+                         "exceed the kernel's 32-bit indexing")
+    if stamps is not None:
+        want = (launch_grid(weights.device), _lib().stdp_update_stamps())
+        if stamps.dtype != torch.int64 or tuple(stamps.shape) != want \
+                or stamps.device != weights.device \
+                or not stamps.is_contiguous():
+            raise ValueError(f"stdp_update: stamps must be a stamps_buffer "
+                             f"(int64 {list(want)} on {weights.device})")
+
+
+def stdp_update(weights, targets, pmask, in_syn, pmask_in, ids, x_pre,
+                x_post, spiked, coef: StdpCoef, *, full: bool,
+                clip_all: bool, stamps=None):
+    """Returns ``(weights, x_pre', x_post')``; see
+    :func:`stdp_update_plain`.  ``stamps`` (a ``stamps_buffer``, on the
+    card only) selects the stamped kernel, for a phase table."""
+    args = (weights, targets, pmask, in_syn, pmask_in, ids, x_pre, x_post,
+            spiked)
+    if weights.device.type == "cpu":
+        if stamps is not None:
+            raise ValueError("stdp_update: stamps are the kernel's, on the "
+                             "card")
+        return stdp_update_plain(*args, coef, full=full, clip_all=clip_all)
+    _check(*args, full, stamps)
+    n = x_pre.shape[0]
+    pack = session_pack(weights, targets, pmask, in_syn, pmask_in, n=n,
+                        budget=ids.shape[0],
+                        grid=launch_grid(weights.device), coef=coef)
     x_pre_o, x_post_o = ((torch.empty_like(x_pre), torch.empty_like(x_post))
                          if full else (x_pre, x_post))
-    maybe = lambda t: _build.ptr(t) if full else _P(None)
-    dev = weights.device
-    grid = cooperative_grid(dev)
+    ptr = lambda t: t.data_ptr() if full else None
+    c_args = (ctypes.addressof(pack), ids.data_ptr(), x_pre.data_ptr(),
+              ptr(x_post), ptr(spiked), ptr(x_pre_o), ptr(x_post_o),
+              int(full), int(clip_all))
     lib = _lib()
-    c_args = (
-        _build.ptr(ids), _I(ids.shape[0]), _build.ptr(targets),
-        _build.ptr(pmask), _build.ptr(weights), _I(k), _build.ptr(in_syn),
-        _build.ptr(pmask_in), _I(k_in), _build.ptr(x_pre), maybe(x_post),
-        maybe(spiked), maybe(x_pre_o), maybe(x_post_o), _I(n), _I(int(full)),
-        _I(int(clip_all)), *(_F(v) for v in coef))
+    stream = _build.stream_of(weights)
     if stamps is None:
-        code = lib.stdp_update_launch(*c_args, _I(grid),
-                                      _build.stream_of(weights))
+        code = lib.stdp_update_launch(*c_args, stream)
     else:
-        code = lib.stdp_update_stamped_launch(
-            *c_args, _build.ptr(stamps), _I(grid), _build.stream_of(weights))
+        code = lib.stdp_update_stamped_launch(*c_args, stamps.data_ptr(),
+                                              stream)
     _build.launches["stdp_update"] += 1
-    _build.check(lib, code, "stdp_update (cooperative launch)")
+    _build.check(lib, code, "stdp_update")
     return weights, x_pre_o, x_post_o

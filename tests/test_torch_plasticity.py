@@ -223,8 +223,8 @@ def test_touched_clip_equals_whole_clip(net):
             spiked[rows] = True
             # the other order: clip the whole table, then the step
             pre = ps._replace(weights=ps.weights.clone())
-            clip_plain(pre.weights, net["ptab"].plastic_out, None, None,
-                       None, net["coef"].w_max, True)
+            clip_plain(pre.weights, net["ptab"].plastic_out,
+                       net["coef"].w_max)
             pre = _step(pre, net["ptab"], spiked, net["coef"], BUDGET)
         jps = JP.stdp_step(jps, net["jtables"], jnp.asarray(spiked),
                            net["jstdp"], BUDGET, c.n_exc)
