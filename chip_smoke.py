@@ -341,6 +341,42 @@ def profile_window(sim, t_ms: float, ms_step: float) -> dict:
                 host_ops_ms_per_step=json.dumps(dict(host[:10])))
 
 
+def stdp_counts(targets, pmask, in_syn, pmask_in, ids_list) -> dict:
+    """What ``stdp_update`` needs for each of ``ids_list`` (the step's
+    padded ids), averaged: the real and the plastic entries of the ids'
+    OUT rows and IN rows, and the distinct sources of the plastic IN
+    entries."""
+    import torch
+    n, k = targets.shape[0] - 1, targets.shape[1]
+    cnt = {key: 0.0 for key in ("out", "out_plastic", "in", "in_plastic",
+                                "sources")}
+    for ids in ids_list:
+        rows = ids[ids < n].long()
+        syn, pin = in_syn[rows], pmask_in[rows]
+        for key, v in (("out", (targets[rows] < n).sum()),
+                       ("out_plastic", pmask[rows].sum()),
+                       ("in", (syn != n * k).sum()), ("in_plastic", pin.sum()),
+                       ("sources", torch.unique(syn[pin] // k).numel())):
+            cnt[key] += float(v) / len(ids_list)
+    return cnt
+
+
+def stdp_bytes(cnt: dict, budget: int) -> float:
+    """``stdp_update``'s bytes (``full=False``): the ids; the IN rows'
+    masks, and the plastic entries' index, weight (read and written) and
+    source trace; the OUT rows' masks and plastic weights, read for the
+    clip."""
+    return (4 * budget + cnt["in"] + 16 * cnt["in_plastic"]
+            + 4 * cnt["sources"] + cnt["out"] + 4 * cnt["out_plastic"])
+
+
+def k2_bytes(n: int, budget: int, n_entries: float) -> float:
+    """K2's bytes: the spike vector, the ids, the overflow, the real rows'
+    (target, weight, dbin) entries and a read-modify-write of the ring
+    cell each real entry adds into."""
+    return n + 4 * budget + 4 + n_entries * (12 + 8)
+
+
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """(ms, "bytes" | "operations"): the least time the card could take,
     the larger of the bytes over the memory rate and the operations over
@@ -1157,9 +1193,6 @@ def main() -> None:
     ids_np = [np.flatnonzero(s.cpu().numpy())[:budget_main] for s in spks]
     # entries with a real target (padding is skipped), per call on average
     n_entries = float(np.mean([(c.targets[i] < N).sum() for i in ids_np]))
-    # spike vector, ids, the real rows' (target, weight, dbin) entries, and
-    # a read-modify-write of the ring cell each real entry adds into
-    k2_bytes = N + 4 * budget_main + 4 + n_entries * (12 + 8)
     ring = ring0()
     k2 = timed(lambda i: K2.ell_deliver(ring, *tbl, spk_of(i), t_step,
                                         c.n_exc, budget_main))
@@ -1253,7 +1286,6 @@ def main() -> None:
     x_pre_t, x_post_t = traces(), traces()
     spks_pl = [spiked_with(spikes_pl) for _ in range(64)]
     ids_pl = [compact_ids_plain(x, budget_main)[0] for x in spks_pl]
-    ids_np_pl = [i.cpu().numpy() for i in ids_pl]
     k4_state = (*state_in, ext_ex, i_dc, x_pre_t, x_post_t, t_step)
     k4_kw = dict(n_exc=c.n_exc, budget=budget_main, prop=prop,
                  coef=rule.coef)
@@ -1312,34 +1344,14 @@ def main() -> None:
         say("stdp_graph", full=full, launches_captured=64,
             replay_equal_to_eager=True, graph_ms=t["graph_ms"], ms=t["ms"],
             call_ms=t["call_ms"])
-    # the data these calls need, averaged over the 64 spike vectors
-    fill = N * tables.targets.shape[1]
-    cnt = {key: [] for key in ("out", "out_plastic", "in", "in_plastic",
-                               "sources")}
-    for ids in ids_np_pl:
-        ids = ids[ids < N]
-        rows = c.targets[ids]
-        real = rows < N
-        cnt["out"].append(real.sum())
-        cnt["out_plastic"].append(((ids < c.n_exc)[:, None]
-                                   & (rows < c.n_exc)).sum())
-        syn = ptables.in_syn_idx[torch.as_tensor(ids, device=dev)].cpu()
-        pin = ptables.plastic_in[torch.as_tensor(ids, device=dev)].cpu()
-        cnt["in"].append(int((syn != fill).sum()))
-        cnt["in_plastic"].append(int(pin.sum()))
-        cnt["sources"].append(int(torch.unique(
-            syn[pin] // tables.targets.shape[1]).numel()))
-    cnt = {key: float(np.mean(v)) for key, v in cnt.items()}
+    cnt = stdp_counts(tables.targets, pmask, ptables.in_syn_idx,
+                      ptables.plastic_in, ids_pl)
     k4_bytes = (N * (6 * 4 + 4 * 4 + 1) + N + 2 * 2 * (N + 1) * 4
                 + 4 * budget_main + 4 + cnt["out"] * (12 + 8)
                 + cnt["out"] + 4 * cnt["out_plastic"] + 16 * N)
     k4_ops = (LIF_OPS * N + ENTRY_OPS * cnt["out"]
               + 2 * cnt["out_plastic"] + 4 * N)
-    # ids; the IN rows' masks, and the plastic entries' index, weight
-    # (read and written) and source trace; the OUT rows' masks and plastic
-    # weights, read for the clip
-    k5_bytes = (4 * budget_main + cnt["in"] + 16 * cnt["in_plastic"]
-                + 4 * cnt["sources"] + cnt["out"] + 4 * cnt["out_plastic"])
+    k5_bytes = stdp_bytes(cnt, budget_main)
     say("timing_plastic", spikes=spikes_pl, entries=json.dumps(cnt),
         K4=json.dumps(k4), stdp_update=json.dumps(k5),
         stdp_update_full_step=json.dumps(k5_full),
@@ -1518,7 +1530,8 @@ def main() -> None:
             "src/repro/kernels/lif_update.py:58", k1, k1_plain, k1_bytes,
             LIF_OPS * N, None, max_err["lif_update"]),
         row("ell_deliver", "lif_deliver.cu",
-            "src/repro/kernels/ell_deliver.py:75", k2, k2_plain, k2_bytes,
+            "src/repro/kernels/ell_deliver.py:75", k2, k2_plain,
+            k2_bytes(N, budget_main, n_entries),
             ENTRY_OPS * n_entries, k2_lib, max_err["ell_deliver"]),
         row("lif_deliver", "lif_deliver.cu",
             "src/repro/kernels/lif_deliver.py:199", k3, k3_plain,

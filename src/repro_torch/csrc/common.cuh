@@ -14,6 +14,22 @@ EXPORT const char* kernel_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Stamp k of this block, of kStamps a block, for the phase tables of a
+// stamped launch (lif_deliver.cu, stdp_update.cu): %globaltimer (ns) into
+// s[blockIdx.x * kStamps + k], once all the block's threads are past the
+// point.  The stamps' own __syncthreads sit inside the phases they bound.
+template <int kStamps, bool kOn>
+__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
+  if constexpr (kOn) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      unsigned long long t;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+      s[blockIdx.x * kStamps + k] = t;
+    }
+  }
+}
+
 // Propagators of one exact-integration iaf_psc_exp step, rounded to float32
 // on the host exactly as PyTorch rounds a Python float scalar.
 struct LifProp {

@@ -184,21 +184,6 @@ __device__ __forceinline__ void st_relaxed(unsigned long long* p,
                :: "l"(p), "l"(v) : "memory");
 }
 
-__device__ __forceinline__ unsigned long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Stamp k of this block, once all its threads are past the point.
-template <bool kOn>
-__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
-  if constexpr (kOn) {
-    __syncthreads();
-    if (threadIdx.x == 0) s[blockIdx.x * kStamps + k] = global_ns();
-  }
-}
-
 __device__ __forceinline__ unsigned long long word(unsigned tag,
                                                    unsigned kind, int v) {
   return (static_cast<unsigned long long>(tag << 2 | kind) << 32) |
@@ -272,9 +257,8 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   unsigned long long* words = k.ws + 1;
   cg::grid_group grid = cg::this_grid();
   const int g = b * kBlock + threadIdx.x, threads = G * kBlock;
-  stamp<kStamped>(io.stamps, 0);
+  stamp<kStamps, kStamped>(io.stamps, 0);
   if (threadIdx.x == 0) launch_no = ld_relaxed(k.ws);
-
 
   // 1. ordered compaction.  Tile b is [lo, hi); each thread counts a
   // contiguous run of it, so that ranks follow neuron order.
@@ -293,7 +277,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   const int in_tile = __shfl_sync(kFull, wincl - wt, warp) + incl - c;
   const int count = __shfl_sync(kFull, wincl, 31);
   const unsigned tag = static_cast<unsigned>(launch_no) & 0x3fffffffu;
-  stamp<kStamped>(io.stamps, 1);
+  stamp<kStamps, kStamped>(io.stamps, 1);
   if (warp == 0) {
     if (lane == 0)
       st_relaxed(words + b, word(tag, b == 0 ? kPrefix : kAggregate, count));
@@ -304,13 +288,13 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
     }
   }
   __syncthreads();
-  stamp<kStamped>(io.stamps, 2);
+  stamp<kStamps, kStamped>(io.stamps, 2);
   int rank = tile_first + in_tile;
   for (int i = r0; i < r1 && rank < k.budget; ++i)
     if (io.spiked_prev[i]) io.ids[rank++] = i;
-  stamp<kStamped>(io.stamps, 3);
+  stamp<kStamps, kStamped>(io.stamps, 3);
   grid.sync();
-  stamp<kStamped>(io.stamps, 4);
+  stamp<kStamps, kStamped>(io.stamps, 4);
   // every block read the epoch before the sync
   if (g == 0) k.ws[0] = launch_no + 1;
 
@@ -358,10 +342,10 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
       }
     }
   }
-  stamp<kStamped>(io.stamps, 5);
+  stamp<kStamps, kStamped>(io.stamps, 5);
   if constexpr (kForm == Form::kDeliver) return;
   grid.sync();
-  stamp<kStamped>(io.stamps, 6);
+  stamp<kStamps, kStamped>(io.stamps, 6);
 
   // 3. LIF update against the just-delivered slot, which it then consumes
   const int slot = (io.t_prev + 1) % k.d_bins;
@@ -382,7 +366,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
     row_ex[i] = 0.0f;
     row_in[i] = 0.0f;
   }
-  stamp<kStamped>(io.stamps, 7);
+  stamp<kStamps, kStamped>(io.stamps, 7);
 }
 
 template <Form kForm, bool kStamped>

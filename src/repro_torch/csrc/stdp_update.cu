@@ -86,19 +86,6 @@ struct StdpArgs {
   StdpIO io;
 };
 
-// Stamp k of this block, once all its threads are past the point.
-template <bool kOn>
-__device__ __forceinline__ void stamp(unsigned long long* s, int k) {
-  if constexpr (kOn) {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long t;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-      s[blockIdx.x * kStamps + k] = t;
-    }
-  }
-}
-
 // The first index of ids[0, len) (ascending) whose id is >= x.
 __device__ __forceinline__ int lower_bound(const int* ids, int len, int x) {
   int lo = 0;
@@ -125,7 +112,7 @@ __global__ void __launch_bounds__(kBlock, 1) stdp_update_kernel(StdpArgs a) {
   const StdpIO& io = a.io;
   __shared__ int s_ids[kSmemIds];
   const int g = blockIdx.x * kBlock + threadIdx.x, threads = gridDim.x * kBlock;
-  stamp<kStamped>(io.stamps, 0);
+  stamp<kStamps, kStamped>(io.stamps, 0);
   // this thread's first neuron's trace inputs, in flight with the ids
   const bool trace = io.full && g < k.n;
   float xp0 = 0.0f, xq0 = 0.0f;
@@ -140,7 +127,7 @@ __global__ void __launch_bounds__(kBlock, 1) stdp_update_kernel(StdpArgs a) {
   __syncthreads();
   const int* ids = k.budget <= kSmemIds ? s_ids : io.ids;
   const int n_real = lower_bound(ids, k.budget, k.n);
-  stamp<kStamped>(io.stamps, 1);
+  stamp<kStamps, kStamped>(io.stamps, 1);
 
   if (trace) {
     io.x_pre_o[g] = stdp_trace(xp0, k.decay_p, sp0);
@@ -202,7 +189,7 @@ __global__ void __launch_bounds__(kBlock, 1) stdp_update_kernel(StdpArgs a) {
       if (__float_as_uint(v) != __float_as_uint(w[u])) k.w[at[u]] = v;
     }
   }
-  stamp<kStamped>(io.stamps, 2);
+  stamp<kStamps, kStamped>(io.stamps, 2);
 
   if (io.clip_all) {                  // cooperative launches only
     cg::this_grid().sync();
@@ -213,7 +200,7 @@ __global__ void __launch_bounds__(kBlock, 1) stdp_update_kernel(StdpArgs a) {
       if (__float_as_uint(c) != __float_as_uint(v)) k.w[e] = c;
     }
   }
-  stamp<kStamped>(io.stamps, 3);
+  stamp<kStamps, kStamped>(io.stamps, 3);
 }
 
 template <bool kStamped>

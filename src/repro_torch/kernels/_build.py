@@ -157,6 +157,15 @@ def stream_of(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+def device_index(device) -> int:
+    """The index of a CUDA ``device``; ``torch.device("cuda")`` has none,
+    and means the current device."""
+    import torch
+    device = torch.device(device)
+    return torch.cuda.current_device() if device.index is None \
+        else device.index
+
+
 def require_cuda(what: str, *tensors) -> None:
     """A kernel takes contiguous CUDA tensors of one device, or raises."""
     dev = tensors[0].device

@@ -173,16 +173,10 @@ def _lib():
     return lib
 
 
-def _index(device: torch.device) -> int:
-    device = torch.device(device)
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
-
-
 def cooperative_grid(device: torch.device, n_cols: int) -> int:
     """Blocks of K3's and K4's cooperative launch on ``device`` for
     ``n_cols`` ring columns: one per SM, fewer for a small network."""
-    key = (_index(device), n_cols)
+    key = (_build.device_index(device), n_cols)
     if key not in _grid:
         lib = _lib()
         out = ctypes.c_int(0)
@@ -214,7 +208,7 @@ def workspace(device: torch.device, grid: int) -> torch.Tensor:
     (int64 words: the launch count, then one look-back word per block),
     zeroed when first asked for and never again: the kernel advances the
     count itself."""
-    key = (_index(device), grid)
+    key = (_build.device_index(device), grid)
     if key not in _workspaces:
         _workspaces[key] = torch.zeros(
             _lib().lif_deliver_workspace_words(grid), dtype=torch.int64,

@@ -193,15 +193,9 @@ def _lib():
     return lib
 
 
-def _index(device: torch.device) -> int:
-    device = torch.device(device)
-    return torch.cuda.current_device() if device.index is None \
-        else device.index
-
-
 def launch_grid(device: torch.device) -> int:
     """Blocks of the kernel's launch on ``device``: one per SM."""
-    key = _index(device)
+    key = _build.device_index(device)
     if key not in _grid:
         lib = _lib()
         out = ctypes.c_int(0)

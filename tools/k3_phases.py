@@ -13,8 +13,9 @@ has no stamped instantiation), the device time a launch
 (``torch.profiler``), the back-to-back time a call (CUDA events: the
 host's rate) and the time a launch of 64 launches replayed in one CUDA
 graph.  ``stdp`` is the potentiation and clip after K4 (``full=False``),
-``stdp_full`` the whole step.  Prints the card's name and power limit, then
-one JSON line.  The tree under test comes from ``PYTHONPATH``, so two trees
+``stdp_full`` the whole step.  K2 and ``stdp`` also get their bound, as
+``chip_smoke.py``'s ``kernels`` line counts it for these spikes.  Prints
+the card's name and power limit, then one JSON line.  The tree under test comes from ``PYTHONPATH``, so two trees
 are compared with one copy of this script, alternating the trees within
 one machine call::
 
@@ -32,7 +33,9 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-from chip_smoke import call_ms, card_line, device_ms, phase_table  # noqa
+from chip_smoke import (ENTRY_OPS, bound, call_ms, card_line,  # noqa: E402
+                        device_ms, k2_bytes, phase_table, stdp_bytes,
+                        stdp_counts)
 
 
 KERNELS = ("k3", "k4", "k2", "stdp")
@@ -108,7 +111,13 @@ def main() -> None:
             ring, targets, weights, dbins, pmask, spks[i % 64], *state,
             x_pre, x_post, 1234, n_exc=n_exc, budget=256, prop=prop,
             coef=coef, **kw), k3_stamps, K3.PHASES)
+    bounds = {}
     if "k2" in args.kernel:
+        # the real entries of the spiking rows (all delivered: 25 < 256)
+        n_entries = sum(float((targets[x.nonzero()[:, 0]] < n).sum())
+                        for x in spks) / 64
+        bounds["K2"] = bound(k2_bytes(n, 256, n_entries),
+                             ENTRY_OPS * n_entries)
         stamped = hasattr(K2, "PHASES")
         launches["K2"] = (lambda i, **kw: K2.ell_deliver(
             ring, targets, weights, dbins, spks[i % 64], 1234, n_exc, 256,
@@ -119,6 +128,9 @@ def main() -> None:
             SimpleNamespace(targets=targets, weights=weights, dbins=dbins),
             n_exc)
         ids = [compact_ids_plain(x, 256)[0] for x in spks]
+        cnt = stdp_counts(targets, ptab.plastic_out, ptab.in_syn_idx,
+                          ptab.plastic_in, ids)
+        bounds["stdp"] = bound(stdp_bytes(cnt, 256), 2 * cnt["in_plastic"])
         w_live = weights.clone()
         for full in (False, True):
             launches["stdp_full" if full else "stdp"] = (
@@ -153,6 +165,8 @@ def main() -> None:
         row["graph_ms"] = call_ms(lambda i: g.replay(), iters=16) / 64
         row["ms"] = device_ms(launch)
         row["call_ms"] = call_ms(launch)
+        if name in bounds:
+            row["bound_ms"], row["bound_by"] = bounds[name]
         out[name] = row
         del g
     print(json.dumps(out), flush=True)
