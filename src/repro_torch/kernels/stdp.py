@@ -71,6 +71,8 @@ def among_ids(x: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
     """Whether each neuron of ``x`` is one of the step's ``ids`` (ascending,
     then the sentinel ``n``): the kernel's binary search.  A neuron that
     spiked but was cut by the budget is not among them."""
+    if not ids.numel():                   # a spike budget of 0
+        return torch.zeros_like(x, dtype=torch.bool)
     at = torch.searchsorted(ids, x.to(ids.dtype)).clamp(max=ids.shape[0] - 1)
     return (ids[at] == x) & (x < n)
 
