@@ -55,6 +55,7 @@ namespace {
 
 constexpr int kBlock = 1024;
 constexpr int kUnroll = 4;            // entries a thread has in flight
+constexpr int kClipUnroll = 8;        // the same in the whole-table clip
 constexpr int kSmemIds = 8192;        // ids a block copies to shared memory
 // %globaltimer stamps a block of the stamped launches: its start, and the
 // end of each of PHASES in kernels/stdp.py
@@ -193,11 +194,27 @@ __global__ void __launch_bounds__(kBlock, 1) stdp_update_kernel(StdpArgs a) {
 
   if (io.clip_all) {                  // cooperative launches only
     cg::this_grid().sync();
+    // a stream over the whole table: kClipUnroll masks, then their
+    // weights, in flight a thread
     const size_t all = static_cast<size_t>(k.n + 1) * k.k;
-    for (size_t e = g; e < all; e += threads) {
-      if (!k.pmask[e]) continue;
-      const float v = k.w[e], c = stdp_clipped(v, k.w_max);
-      if (__float_as_uint(c) != __float_as_uint(v)) k.w[e] = c;
+    for (size_t e0 = g; e0 < all; e0 += kClipUnroll * threads) {
+      bool m[kClipUnroll];
+      float v[kClipUnroll];
+#pragma unroll
+      for (int u = 0; u < kClipUnroll; ++u) {
+        const size_t e = e0 + static_cast<size_t>(u) * threads;
+        m[u] = e < all && k.pmask[e];
+      }
+#pragma unroll
+      for (int u = 0; u < kClipUnroll; ++u)
+        if (m[u]) v[u] = k.w[e0 + static_cast<size_t>(u) * threads];
+#pragma unroll
+      for (int u = 0; u < kClipUnroll; ++u) {
+        if (!m[u]) continue;
+        const float c = stdp_clipped(v[u], k.w_max);
+        if (__float_as_uint(c) != __float_as_uint(v[u]))
+          k.w[e0 + static_cast<size_t>(u) * threads] = c;
+      }
     }
   }
   stamp<kStamps, kStamped>(io.stamps, 3);

@@ -13,7 +13,8 @@ has no stamped instantiation), the device time a launch
 (``torch.profiler``), the back-to-back time a call (CUDA events: the
 host's rate) and the time a launch of 64 launches replayed in one CUDA
 graph.  ``stdp`` is the potentiation and clip after K4 (``full=False``),
-``stdp_full`` the whole step.  K2 and ``stdp`` also get their bound, as
+``stdp_full`` the whole step, ``stdp_clip`` the form with the
+whole-table clip (a run's first update).  K2 and ``stdp`` also get their bound, as
 ``chip_smoke.py``'s ``kernels`` line counts it for these spikes.  Prints
 the card's name and power limit, then one JSON line.  The tree under test comes from ``PYTHONPATH``, so two trees
 are compared with one copy of this script, alternating the trees within
@@ -132,12 +133,14 @@ def main() -> None:
                           ptab.plastic_in, ids)
         bounds["stdp"] = bound(stdp_bytes(cnt, 256), 2 * cnt["in_plastic"])
         w_live = weights.clone()
-        for full in (False, True):
-            launches["stdp_full" if full else "stdp"] = (
-                lambda i, full=full, **kw: KS.stdp_update(
+        for name, full, clip_all in (("stdp", False, False),
+                                     ("stdp_full", True, False),
+                                     ("stdp_clip", False, True)):
+            launches[name] = (
+                lambda i, full=full, clip_all=clip_all, **kw: KS.stdp_update(
                     w_live, targets, ptab.plastic_out, ptab.in_syn_idx,
                     ptab.plastic_in, ids[i % 64], x_pre, x_post,
-                    spks[i % 64], coef, full=full, clip_all=False, **kw),
+                    spks[i % 64], coef, full=full, clip_all=clip_all, **kw),
                 lambda: KS.stamps_buffer(dev), KS.PHASES)
         out_k_in = int(ptab.in_syn_idx.shape[1])
     out = {"tag": args.tag, "tree": repro_torch.__file__,
