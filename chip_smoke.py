@@ -28,10 +28,12 @@ Phases, each on its own line; any failed check exits non-zero:
    ``compact_ids_plain`` and the workspace's launch count advanced 2,000;
    400 launches of K2 and K3 in turns on that workspace, the same checks
    (``[K2_K3_interleaved]``);
-   then ``stdp_update`` at the four random spike counts, with and without
-   the depression and the whole-table clip, bitwise (weights and traces)
-   from a table with E->E weights above w_max; and the plastic tables'
-   build time and bytes;
+   then ``stdp_update`` at the four random spike counts and the burst
+   (budget 8,192, the most ids the kernel keeps in shared memory), and at
+   10,000 spikes with budget 9,000 (the ids read from global memory, 1,000
+   spiking targets cut), with and without the depression and the
+   whole-table clip, bitwise (weights and traces) from a table with E->E
+   weights above w_max; and the plastic tables' build time and bytes;
 4. the port against its plain reference on the card at scale 0.02: the
    fused and split paths give the reference's spike raster, static and
    with pair STDP (and then the reference's final weights, bitwise);
@@ -363,10 +365,10 @@ def stdp_counts(targets, pmask, in_syn, pmask_in, ids_list) -> dict:
 
 def stdp_bytes(cnt: dict, budget: int) -> float:
     """``stdp_update``'s bytes (``full=False``): the ids; the IN rows'
-    masks, and the plastic entries' index, weight (read and written) and
-    source trace; the OUT rows' masks and plastic weights, read for the
-    clip."""
-    return (4 * budget + cnt["in"] + 16 * cnt["in_plastic"]
+    masks, and the plastic entries' index and weight (read and written);
+    each distinct source's trace once; the OUT rows' masks and plastic
+    weights, read for the clip."""
+    return (4 * budget + cnt["in"] + 12 * cnt["in_plastic"]
             + 4 * cnt["sources"] + cnt["out"] + 4 * cnt["out_plastic"])
 
 
@@ -948,6 +950,32 @@ def main() -> None:
         k_in=ptab.in_syn_idx.shape[1], plastic_synapses=n_plastic_syn,
         weights_above_w_max=w_over, coef=json.dumps(coef._asdict()))
     traces = lambda: on(rng.uniform(0, 3, N).astype(np.float32))
+
+    def stdp_bitwise(ids, spk, x_pre, x_post):
+        """``stdp_update`` in its four forms against its plain version."""
+        k = int(spk.sum())
+        for full in (False, True):
+            for clip_all in (False, True):
+                w_k, w_p = w_base.clone(), w_base.clone()
+                stdp_in = (tables.targets, pmask, ptab.in_syn_idx,
+                           ptab.plastic_in, ids, x_pre, x_post, spk, coef)
+                got = KS.stdp_update(w_k, *stdp_in, full=full,
+                                     clip_all=clip_all)
+                want = KS.stdp_update_plain(w_p, *stdp_in, full=full,
+                                            clip_all=clip_all)
+                torch.cuda.synchronize()
+                for name, a, b in zip(("weights", "x_pre", "x_post"), got,
+                                      want):
+                    max_err["stdp_update"] = max(
+                        max_err["stdp_update"], float((a - b).abs().max()))
+                    if not bitwise(a, b):
+                        fail(f"stdp_update {name} differs from the plain "
+                             f"version at {k} spikes, budget {len(ids)} "
+                             f"(full={full}, clip_all={clip_all})")
+                changed = int((w_k != w_base).sum())
+                say("stdp_update", spikes=k, budget=len(ids), full=full,
+                    clip_all=clip_all, bitwise=True, weights_changed=changed)
+
     for case, spk, bud in cases:
         k = int(spk.sum())
         ring = ring0()
@@ -980,31 +1008,17 @@ def main() -> None:
         say("K4", case=case, spikes=k, budget=bud, overflow=int(out_k[10]),
             exact=json.dumps([m for m in names if m not in errs]),
             weights_depressed=n_depressed, max_abs_err=json.dumps(errs))
-        if not case.startswith("random_"):
-            continue
-        for full in (False, True):
-            for clip_all in (False, True):
-                w_k, w_p = w_base.clone(), w_base.clone()
-                stdp_in = (tables.targets, pmask, ptab.in_syn_idx,
-                           ptab.plastic_in, ids, x_pre, x_post, spk, coef)
-                got = KS.stdp_update(w_k, *stdp_in, full=full,
-                                     clip_all=clip_all)
-                want = KS.stdp_update_plain(w_p, *stdp_in, full=full,
-                                            clip_all=clip_all)
-                torch.cuda.synchronize()
-                for name, a, b in zip(("weights", "x_pre", "x_post"), got,
-                                      want):
-                    max_err["stdp_update"] = max(
-                        max_err["stdp_update"], float((a - b).abs().max()))
-                    if not bitwise(a, b):
-                        fail(f"stdp_update {name} differs from the plain "
-                             f"version at {k} spikes (full={full}, "
-                             f"clip_all={clip_all})")
-                changed = int((w_k != w_base).sum())
-                say("stdp_update", spikes=k, full=full, clip_all=clip_all,
-                    bitwise=True, weights_changed=changed)
-    del tables, tbl, ring, out_k, out_p, w_k, w_p, w_base, ptab, pmask, got
-    del want, stdp_in
+        # the burst's budget is the most ids the kernel keeps in shared
+        # memory
+        if case.startswith("random_") or case == "burst_5000":
+            stdp_bitwise(ids, spk, x_pre, x_post)
+    # a budget past the kernel's shared copy of the ids (8,192) that cuts
+    # 1,000 spiking targets (in a smaller network N / 2 spikes, half cut)
+    spk = spiked_with(min(10_000, N // 2))
+    n_spk = int(spk.sum())
+    stdp_bitwise(compact_ids_plain(spk, n_spk - min(1000, n_spk // 2))[0],
+                 spk, traces(), traces())
+    del tables, tbl, ring, out_k, out_p, w_k, w_p, w_base, ptab, pmask
     torch.cuda.empty_cache()
 
     # -- 4. the port against its plain reference on the card -----------------

@@ -1,5 +1,7 @@
-"""K2: sparse-ELL spike delivery (the delivery-only form of the fused
-step's kernel, ``csrc/lif_deliver.cu``) and its plain version.
+"""K2: sparse-ELL spike delivery, the delivery-only form of the fused
+step's kernel (``csrc/lif_deliver.cu``): its entry point and phases.  Its
+plain versions and its launch live in ``lif_deliver`` with the kernel's
+other forms, and are named here too.
 
 Replaces ``repro/kernels/ell_deliver.py:ell_deliver_pallas`` together with
 the id compaction of ``repro/kernels/ops.py:ell_deliver``.  The step's
@@ -21,55 +23,13 @@ and K4 use, a grid sync, then the scatter split evenly by entries.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels import _build
+from repro_torch.kernels import lif_deliver as K3
+from repro_torch.kernels.lif_deliver import (  # noqa: F401 (K2's names)
+    compact_ids_plain, ell_deliver_plain, scatter_rows_plain)
 
 #: what lies between a block's consecutive stamps of K2's stamped launch
 #: (``lif_deliver.stamps_buffer``): the fused step's first five phases
-PHASES = ("count", "look_back", "write_ids", "barrier_1", "scatter")
-
-
-def compact_ids_plain(spiked: torch.Tensor, budget: int):
-    """``nonzero(spiked, size=budget, fill_value=N)`` without a host sync.
-
-    Returns ``(ids [budget] int32, overflow 0-d int32)``: the lowest
-    ``budget`` spiking ids in ascending order, then N; the overflow is
-    ``max(n_spikes - budget, 0)``.
-    """
-    n = spiked.shape[0]
-    rank = torch.cumsum(spiked.to(torch.int32), 0, dtype=torch.int32) - 1
-    keep = spiked & (rank < budget)
-    dest = torch.where(keep, rank, budget).to(torch.int64)
-    ids = torch.full((budget + 1,), n, dtype=torch.int32,
-                     device=spiked.device)
-    ids.scatter_(0, dest, torch.arange(n, dtype=torch.int32,
-                                       device=spiked.device))
-    n_spikes = rank[-1] + 1 if n else torch.zeros(
-        (), dtype=torch.int32, device=spiked.device)
-    overflow = torch.clamp(n_spikes - budget, min=0).to(torch.int32)
-    return ids[:budget], overflow
-
-
-def scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc):
-    """Add the ELL rows of ``ids`` into ``ring`` [D, 2, n_cols] in place,
-    at phase ``t``, in s-major / k-minor order."""
-    D, _, n_cols = ring.shape
-    idx = ids.to(torch.int64)
-    tg = targets[idx].to(torch.int64)                  # [S, K]
-    slot = torch.remainder(t + dbins[idx].to(torch.int64), D)
-    ch = (idx >= n_exc).to(torch.int64)
-    lin = slot * (2 * n_cols) + ch[:, None] * n_cols + tg
-    ring.view(-1).index_add_(0, lin.reshape(-1), weights[idx].reshape(-1))
-    return ring
-
-
-def ell_deliver_plain(ring, targets, weights, dbins, spiked, t: int,
-                      n_exc: int, budget: int):
-    """Returns ``(ring, ids, overflow)``; ``ring`` updated in place."""
-    ids, overflow = compact_ids_plain(spiked, budget)
-    scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc)
-    return ring, ids, overflow
+PHASES = K3.PHASES[:5]
 
 
 def ell_deliver(ring, targets, weights, dbins, spiked, t: int, n_exc: int,
@@ -84,24 +44,5 @@ def ell_deliver(ring, targets, weights, dbins, spiked, t: int, n_exc: int,
                              "card")
         return ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
                                  n_exc, budget)
-    # imported here: lif_deliver imports this module's plain versions
-    from repro_torch.kernels import lif_deliver
-    return lif_deliver.deliver(ring, targets, weights, dbins, spiked, t,
-                               n_exc=n_exc, budget=budget, stamps=stamps)
-
-
-def _check_inputs(what, ring, targets, weights, dbins, spiked):
-    _build.require_cuda(what, ring, targets, weights, dbins, spiked)
-    n = spiked.shape[0]
-    if ring.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError(f"{what}: ring and weights must be float32")
-    if targets.dtype != torch.int32 or dbins.dtype != torch.int32:
-        raise TypeError(f"{what}: targets and dbins must be int32")
-    if spiked.dtype != torch.bool:
-        raise TypeError(f"{what}: spiked must be bool")
-    if ring.dim() != 3 or ring.shape[1:] != (2, n + 1):
-        raise ValueError(f"{what}: ring must be [D, 2, N+1], got "
-                         f"{tuple(ring.shape)} for N={n}")
-    if targets.shape[0] != n + 1 or weights.shape != targets.shape \
-            or dbins.shape != targets.shape:
-        raise ValueError(f"{what}: tables must be [N+1, K] alike")
+    return K3.deliver(ring, targets, weights, dbins, spiked, t, n_exc=n_exc,
+                      budget=budget, stamps=stamps)

@@ -1,5 +1,6 @@
 """K3 and K4: the fused one-kernel step (``csrc/lif_deliver.cu``), static
-and plastic, and their plain versions.
+and plastic, and their plain versions; and K2's, the same kernel's
+delivery-only form (its entry point is ``kernels/ell_deliver``).
 
 K3 replaces ``repro/kernels/lif_deliver.py:lif_deliver_pallas`` (static
 synapses).  One call delivers the previous step's spikes at ring phase
@@ -41,9 +42,6 @@ import torch
 
 from repro_torch.core.neuron import Propagators
 from repro_torch.kernels import _build
-from repro_torch.kernels import ell_deliver as K2
-from repro_torch.kernels.ell_deliver import (_check_inputs,
-                                             ell_deliver_plain)
 from repro_torch.kernels.lif_update import lif_update_plain
 from repro_torch.kernels.stdp import StdpCoef, depress_plain, traces_plain
 
@@ -53,7 +51,67 @@ _grid: dict = {}
 _workspaces: dict = {}
 #: what lies between a block's consecutive stamps (``stamps_buffer``); K2
 #: stops after the first five
-PHASES = K2.PHASES + ("barrier_2", "lif")
+PHASES = ("count", "look_back", "write_ids", "barrier_1", "scatter",
+          "barrier_2", "lif")
+
+
+def compact_ids_plain(spiked: torch.Tensor, budget: int):
+    """``nonzero(spiked, size=budget, fill_value=N)`` without a host sync.
+
+    Returns ``(ids [budget] int32, overflow 0-d int32)``: the lowest
+    ``budget`` spiking ids in ascending order, then N; the overflow is
+    ``max(n_spikes - budget, 0)``.
+    """
+    n = spiked.shape[0]
+    rank = torch.cumsum(spiked.to(torch.int32), 0, dtype=torch.int32) - 1
+    keep = spiked & (rank < budget)
+    dest = torch.where(keep, rank, budget).to(torch.int64)
+    ids = torch.full((budget + 1,), n, dtype=torch.int32,
+                     device=spiked.device)
+    ids.scatter_(0, dest, torch.arange(n, dtype=torch.int32,
+                                       device=spiked.device))
+    n_spikes = rank[-1] + 1 if n else torch.zeros(
+        (), dtype=torch.int32, device=spiked.device)
+    overflow = torch.clamp(n_spikes - budget, min=0).to(torch.int32)
+    return ids[:budget], overflow
+
+
+def scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc):
+    """Add the ELL rows of ``ids`` into ``ring`` [D, 2, n_cols] in place,
+    at phase ``t``, in s-major / k-minor order."""
+    D, _, n_cols = ring.shape
+    idx = ids.to(torch.int64)
+    tg = targets[idx].to(torch.int64)                  # [S, K]
+    slot = torch.remainder(t + dbins[idx].to(torch.int64), D)
+    ch = (idx >= n_exc).to(torch.int64)
+    lin = slot * (2 * n_cols) + ch[:, None] * n_cols + tg
+    ring.view(-1).index_add_(0, lin.reshape(-1), weights[idx].reshape(-1))
+    return ring
+
+
+def ell_deliver_plain(ring, targets, weights, dbins, spiked, t: int,
+                      n_exc: int, budget: int):
+    """Returns ``(ring, ids, overflow)``; ``ring`` updated in place."""
+    ids, overflow = compact_ids_plain(spiked, budget)
+    scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc)
+    return ring, ids, overflow
+
+
+def _check_inputs(what, ring, targets, weights, dbins, spiked):
+    _build.require_cuda(what, ring, targets, weights, dbins, spiked)
+    n = spiked.shape[0]
+    if ring.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise TypeError(f"{what}: ring and weights must be float32")
+    if targets.dtype != torch.int32 or dbins.dtype != torch.int32:
+        raise TypeError(f"{what}: targets and dbins must be int32")
+    if spiked.dtype != torch.bool:
+        raise TypeError(f"{what}: spiked must be bool")
+    if ring.dim() != 3 or ring.shape[1:] != (2, n + 1):
+        raise ValueError(f"{what}: ring must be [D, 2, N+1], got "
+                         f"{tuple(ring.shape)} for N={n}")
+    if targets.shape[0] != n + 1 or weights.shape != targets.shape \
+            or dbins.shape != targets.shape:
+        raise ValueError(f"{what}: tables must be [N+1, K] alike")
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
@@ -357,8 +415,7 @@ def deliver(ring, targets, weights, dbins, spiked, t: int, *, n_exc: int,
     """K2 on the card: the kernel's delivery-only form, one cooperative
     launch.  Returns ``(ring, ids, overflow)``; ``ring`` is updated in
     place (see ``ell_deliver.ell_deliver``).  ``stamps`` as for
-    :func:`lif_deliver`; the launch writes the first ``len(K2.PHASES) + 1``
-    of each block's stamps."""
+    :func:`lif_deliver`; the launch stamps the first five of ``PHASES``."""
     pack = _pack("ell_deliver", ring, targets, weights, dbins, None, spiked,
                  n_exc, budget, None, None)
     ids = torch.empty(budget, dtype=torch.int32, device=ring.device)

@@ -11,14 +11,16 @@ view, ``plasticity.build_plastic_tables``), then, for each ``--kernel`` at
 stamped launches (``chip_smoke.phase_table``; none for a tree whose kernel
 has no stamped instantiation), the device time a launch
 (``torch.profiler``), the back-to-back time a call (CUDA events: the
-host's rate) and the time a launch of 64 launches replayed in one CUDA
-graph.  ``stdp`` is the potentiation and clip after K4 (``full=False``),
-``stdp_full`` the whole step, ``stdp_clip`` the form with the
-whole-table clip (a run's first update).  K2 and ``stdp`` also get their bound, as
-``chip_smoke.py``'s ``kernels`` line counts it for these spikes.  Prints
-the card's name and power limit, then one JSON line.  The tree under test comes from ``PYTHONPATH``, so two trees
-are compared with one copy of this script, alternating the trees within
-one machine call::
+host's rate), the host's µs a call (``host_us``: the median of 20 batches
+of 50 calls on the host's clock; not for the whole-table clip) and the
+time a launch of 64 launches replayed in one CUDA graph.  ``stdp`` is the
+potentiation and clip after K4 (``full=False``), ``stdp_full`` the whole
+step, ``stdp_clip`` the form with the whole-table clip (a run's first
+update).  K2 and ``stdp`` also get their bound, as ``chip_smoke.py``'s
+``kernels`` line counts it for these spikes.  Prints the card's name and
+power limit, then one JSON line.  The tree under test comes from
+``PYTHONPATH``, so two trees are compared with one copy of this script,
+alternating the trees within one machine call::
 
     for t in parent change change parent; do
         PYTHONPATH=build/ab/$t/src python3 tools/k3_phases.py --tag $t
@@ -26,7 +28,9 @@ one machine call::
 """
 import argparse
 import json
+import statistics
 import sys
+import time
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -40,6 +44,21 @@ from chip_smoke import (ENTRY_OPS, bound, call_ms, card_line,  # noqa: E402
 
 
 KERNELS = ("k3", "k4", "k2", "stdp")
+
+
+def host_us(launch, batches: int = 20, calls: int = 50) -> float:
+    """The host's µs a call through the wrapper: ``calls`` calls issued
+    back to back and timed on the host's clock, the card drained between
+    batches; the median over ``batches``."""
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(calls):
+            launch(i)
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def main() -> None:
@@ -133,6 +152,7 @@ def main() -> None:
                           ptab.plastic_in, ids)
         bounds["stdp"] = bound(stdp_bytes(cnt, 256), 2 * cnt["in_plastic"])
         w_live = weights.clone()
+        stamped = hasattr(KS, "stamps_buffer")
         for name, full, clip_all in (("stdp", False, False),
                                      ("stdp_full", True, False),
                                      ("stdp_clip", False, True)):
@@ -141,7 +161,8 @@ def main() -> None:
                     w_live, targets, ptab.plastic_out, ptab.in_syn_idx,
                     ptab.plastic_in, ids[i % 64], x_pre, x_post,
                     spks[i % 64], coef, full=full, clip_all=clip_all, **kw),
-                lambda: KS.stamps_buffer(dev), KS.PHASES)
+                (lambda: KS.stamps_buffer(dev)) if stamped else None,
+                KS.PHASES if stamped else None)
         out_k_in = int(ptab.in_syn_idx.shape[1])
     out = {"tag": args.tag, "tree": repro_torch.__file__,
            "spikes": args.spikes, "kernels": args.kernel}
@@ -168,6 +189,8 @@ def main() -> None:
         row["graph_ms"] = call_ms(lambda i: g.replay(), iters=16) / 64
         row["ms"] = device_ms(launch)
         row["call_ms"] = call_ms(launch)
+        if name != "stdp_clip":       # its 0.5 ms a launch would fill the queue
+            row["host_us"] = host_us(launch)
         if name in bounds:
             row["bound_ms"], row["bound_by"] = bounds[name]
         out[name] = row
