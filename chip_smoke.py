@@ -38,22 +38,39 @@ Phases, each on its own line; any failed check exits non-zero:
    fused and split paths give the reference's spike raster, static and
    with pair STDP (and then the reference's final weights, bitwise);
 5. the main path at ``--scale`` (default 1.0) through
-   ``Simulator(MicrocircuitConfig(scale, strategy="ell"))``: the ``auto``
-   policy must resolve to ``fused``; warmup, 100 ms presim, a ``--t-sim``
-   ms run; RTF, overflow (must be 0), population rates (must lie in
-   ``ref*(1 -+ 0.5) -+ 1`` Hz) and launch counts (K3 once per step);
+   ``Simulator(MicrocircuitConfig(scale, strategy="ell"))``, its loop in
+   CUDA graphs: the ``auto`` policy must resolve to ``fused``; warmup
+   (the graphs' capture), 100 ms presim, a ``--t-sim`` ms run; RTF,
+   overflow (must be 0), population rates (must lie in
+   ``ref*(1 -+ 0.5) -+ 1`` Hz) and launch counts (K3 once per step, a
+   graph replay counting the launches it holds);
    then 200 more steps under ``torch.profiler``: device time per step by
    kernel, the host's time by op, and the device's idle share of the
-   unprofiled step;
-6. a 100 ms run of the split path, which launches K1 and K2;
+   unprofiled step; then ``[graph_draws]`` (two replays of one graph of
+   the drive draw different Poisson counts, each the eager draw from the
+   same generator state), ``[graph_static]`` (the graphed loop against
+   ``backend="instrumented"``, the eager loop, 300 steps from one state
+   and generator state: ``t``, overflow, refrac, the spike raster, the
+   population counts and the generator's state exact; V, the currents
+   and the ring within rtol = atol = 1e-5, since K3's float atomics add
+   in no fixed order, with the elements whose bits differ counted),
+   ``[main_path_eager]`` (the eager loop's ms a step beside the graphed
+   one's) and ``[run_chunked]`` (5 chunks of 10 ms: the graph cache's
+   misses the same after each, the population counts equal to one
+   50 ms run's from the same state, the state as in ``[graph_static]``);
+6. a 100 ms run of the split path, which launches K1 and K2, and
+   ``[graph_split]``, as ``[graph_static]``;
 7. the plastic path at ``--scale`` with ``plasticity="pair_stdp"``: the
    ``auto`` policy must resolve to ``fused``; warmup (which must leave the
    weights alone), 100 ms presim, a ``--t-sim-plastic`` ms run; RTF,
    overflow 0, rates in the same bands, launches (K4 and ``stdp_update``
    once per step), every weight finite, the plastic ones in
    ``[0, w_max]``, every other one bitwise the connectome's; the mean
-   plastic weight before and after (outside the timed window); and 200
-   profiled steps, as in 5;
+   plastic weight before and after (outside the timed window); 200
+   profiled steps, as in 5; ``[graph_plastic]`` (as ``[graph_static]``,
+   against the eager split plastic loop, the run's head steps and
+   whole-table clip included; the weights and traces exact) and
+   ``[plastic_path_eager]``;
 8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
    back-to-back call time from CUDA events (``call_ms``); for K3 and K4
@@ -85,6 +102,10 @@ Phases, each on its own line; any failed check exits non-zero:
    no atomics), with a float32 and a bfloat16 table; (d) K5's times at
    the dense path's mean spike count, and one batched ``torch.matmul`` of
    the spikes against the whole table (TF32 off) as the library call;
+   (e) ``[graph_dense]``: the graphed dense loop against the eager one,
+   300 steps from one state, every tensor bitwise (K1 and K5 add in a
+   fixed order; the eager session is built once the graphed one is
+   freed, two tables not fitting the card), and ``[dense_path_eager]``;
 10. K6 ``flash_attention`` and the LM layers at Qwen3-32B widths
    (``d_model`` 5120, 64 query and 8 KV heads of 128, ``d_ff`` 25600,
    qk-norm, rope theta 1e6; the Hugging Face model card Qwen/Qwen3-32B),
@@ -138,6 +159,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -341,6 +363,114 @@ def profile_window(sim, t_ms: float, ms_step: float) -> dict:
                     {name[:60]: ms / res.n_steps for name, ms in top}),
                 host_op_ms_per_step=sum(ms for _, ms in host),
                 host_ops_ms_per_step=json.dumps(dict(host[:10])))
+
+
+def state_tensors(state) -> dict:
+    """A session state's tensors by name, the plastic ones included."""
+    sim, ps = (state, None) if hasattr(state, "neuron") else state
+    out = {"V": sim.neuron.V, "I_ex": sim.neuron.I_ex,
+           "I_in": sim.neuron.I_in, "refrac": sim.neuron.refrac,
+           "ring": sim.ring, "t": sim.t, "overflow": sim.overflow}
+    if ps is not None:
+        out.update(weights=ps.weights, x_pre=ps.x_pre, x_post=ps.x_post)
+    return out
+
+
+def clone_state(state):
+    """The state's tensors copied; its generator kept (a session that is
+    handed the copy takes that generator's state)."""
+    import torch
+    from repro_torch.api.backends import tree_map
+    return tree_map(torch.clone, state)
+
+
+#: tensors a scatter with float atomics (K2, K3, K4) feeds: the order of
+#: its adds is not fixed, so two runs may differ in their last bits
+ATOMIC_FED = ("V", "I_ex", "I_in", "ring")
+
+
+def hold_to_eager(phase: str, graphed, eager, t_ms: float,
+                  atomics: bool, probes=("pop_counts", "spikes")) -> dict:
+    """``[graph_*]``: the graphed session (``FusedBackend``, CUDA graphs)
+    and the eager one (``backend="instrumented"``) run ``t_ms`` from one
+    state and generator state, the graphed session's (copied into the eager
+    one).  Exact: ``t``, overflow, refrac, the probes' outputs (the spike
+    raster and the population counts), the generator's state after the run
+    and, in a plastic session, the weights and traces.  V, the currents and
+    the ring too, unless ``atomics`` (a path through K2, K3 or K4, whose
+    float atomics add in no fixed order): then within RING_RTOL / ATOL,
+    and the elements whose bits differ are counted."""
+    import numpy as np
+    import torch
+    eager.state = clone_state(graphed.state)
+    for s in (graphed, eager):
+        s.warmup(t_ms, probes=probes, include_presim=False)
+    res_g = graphed.run(t_ms, presim_ms=0, probes=probes)
+    res_e = eager.run(t_ms, presim_ms=0, probes=probes)
+    torch.cuda.synchronize()
+    if res_g.n_steps < 200:
+        fail(f"{phase}: {res_g.n_steps} steps, fewer than 200")
+    out = {"steps": res_g.n_steps, "spikes": int(res_g["spikes"].sum()),
+           "graphs_captured": graphed.backend.graphs.misses}
+    for name in res_g.data:
+        if not np.array_equal(res_g[name], res_e[name]):
+            fail(f"{phase}: the graphed loop's {name} differs from the "
+                 f"eager loop's")
+    if not torch.equal(graphed._generator.get_state(),
+                       eager._generator.get_state()):
+        fail(f"{phase}: the generators' states differ after the run")
+    bits = {}
+    a, b = state_tensors(graphed.state), state_tensors(eager.state)
+    for name in a:
+        x, y = a[name], b[name]
+        differ = int((x.view(torch.int32) != y.view(torch.int32)).sum()) \
+            if x.dtype == torch.float32 else int((x != y).sum())
+        bits[name] = differ
+        if atomics and name in ATOMIC_FED:
+            if not torch.allclose(x, y, rtol=RING_RTOL, atol=RING_ATOL):
+                fail(f"{phase}: {name} beyond rtol = atol = {RING_RTOL} of "
+                     f"the eager loop's: max |diff| "
+                     f"{float((x - y).abs().max())}")
+        elif differ:
+            fail(f"{phase}: {name} differs from the eager loop's in "
+                 f"{differ} elements")
+    out.update(exact=json.dumps(sorted(n for n in a if not atomics
+                                       or n not in ATOMIC_FED)
+                                + sorted(res_g.data) + ["generator"]),
+               elements_with_other_bits=json.dumps(bits),
+               graphed_ms_per_step=res_g.wall_s / res_g.n_steps * 1e3,
+               eager_ms_per_step=res_e.wall_s / res_e.n_steps * 1e3,
+               eager_timers_s=json.dumps(res_e.timers))
+    return out
+
+
+def graph_draws(backend, seed: int) -> dict:
+    """The session's drive captured in one graph (the backend's own graph
+    type) with a generator registered: two replays draw different Poisson
+    counts, and each equals the eager draw from the same generator state."""
+    import torch
+    dev = backend.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    twin = torch.Generator(device=dev)
+    twin.set_state(gen.get_state())
+    t = torch.zeros((), dtype=torch.int32, device=dev)
+    buf = torch.zeros(backend.c.n_total, dtype=torch.int32, device=dev)
+    backend.drive(torch.Generator(device=dev), t, None)     # warm-up
+    graph = backend.graph_type(
+        lambda: buf.copy_(backend.drive(gen, t, None)[1]), gen,
+        backend.graph_type.new_pool())
+    got = []
+    for _ in range(2):
+        graph.replay()
+        got.append(buf.clone())
+    want = [backend.drive(twin, t, None)[1] for _ in range(2)]
+    torch.cuda.synchronize()
+    if torch.equal(got[0], got[1]):
+        fail("two replays of one graph drew the same Poisson counts")
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("a replay's Poisson counts differ from the eager draws")
+    return {"replays": 2, "draws_differ": True, "equal_to_eager": True,
+            "counts": json.dumps([int(x.sum()) for x in got])}
 
 
 def stdp_counts(targets, pmask, in_syn, pmask_in, ids_list) -> dict:
@@ -812,7 +942,13 @@ def main() -> None:
     i_dc = torch.as_tensor(c.i_dc, device=dev)
     tbl = (tables.targets, tables.weights, tables.dbins)
     max_err = {name: 0.0 for name in _build.KERNELS}
+    # the step counter the kernels read on the card (K3 and K4 integrate
+    # step t and deliver at t - 1, K2 and K5 deliver at t); t_seq[i] is
+    # step t_step + i
     t_step = 1234
+    t_seq = torch.arange(t_step, t_step + 2000, dtype=torch.int32,
+                         device=dev)
+    t_dev = t_seq[0]
     # random spikes, then the compaction's edges: one spike at N - 1; the
     # first and last neuron of every tile (budget 512, so that all are
     # delivered); 200 spikes in one tile; an overflow cut inside a tile
@@ -837,10 +973,10 @@ def main() -> None:
     for case, spk, bud in cases:
         k = int(spk.sum())
         ring = ring0()
-        r_k, ids_k, ovf_k = K2.ell_deliver(ring.clone(), *tbl, spk, t_step,
+        r_k, ids_k, ovf_k = K2.ell_deliver(ring.clone(), *tbl, spk, t_dev,
                                            c.n_exc, bud)
         r_p, ids_p, ovf_p = K2.ell_deliver_plain(ring.clone(), *tbl, spk,
-                                                 t_step, c.n_exc, bud)
+                                                 t_dev, c.n_exc, bud)
         torch.cuda.synchronize()
         if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
             fail(f"K2 ids/overflow differ in case {case}")
@@ -851,10 +987,10 @@ def main() -> None:
         del r_k, r_p
 
         out_k = K3.lif_deliver(ring.clone(), *tbl, spk, *state_in, ext_ex,
-                               i_dc, t_step, n_exc=c.n_exc, budget=bud,
+                               i_dc, t_dev, n_exc=c.n_exc, budget=bud,
                                prop=prop)
         out_p = K3.lif_deliver_plain(ring.clone(), *tbl, spk, *state_in,
-                                     ext_ex, i_dc, t_step, n_exc=c.n_exc,
+                                     ext_ex, i_dc, t_dev, n_exc=c.n_exc,
                                      budget=bud, prop=prop)
         torch.cuda.synchronize()
         names = ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
@@ -886,7 +1022,7 @@ def main() -> None:
     ws0 = int(ws[0])
     ring = ring0()
     got = [K3.lif_deliver(ring, *tbl, pool[i % len(pool)], *state_in, ext_ex,
-                          i_dc, t_step + i, n_exc=c.n_exc, budget=budget,
+                          i_dc, t_seq[i], n_exc=c.n_exc, budget=budget,
                           prop=prop)[6:] for i in range(2000)]
     torch.cuda.synchronize()
     for i, (ids_k, ovf_k) in enumerate(got):
@@ -909,10 +1045,10 @@ def main() -> None:
     got = []
     for i in range(400):
         spk = pool[(i // 2) % len(pool)]
-        got.append(K2.ell_deliver(ring, *tbl, spk, t_step + i, c.n_exc,
+        got.append(K2.ell_deliver(ring, *tbl, spk, t_seq[i], c.n_exc,
                                   budget)[1:] if i % 2 else
                    K3.lif_deliver(ring, *tbl, spk, *state_in, ext_ex, i_dc,
-                                  t_step + i, n_exc=c.n_exc, budget=budget,
+                                  t_seq[i], n_exc=c.n_exc, budget=budget,
                                   prop=prop)[6:])
     torch.cuda.synchronize()
     for i, (ids_k, ovf_k) in enumerate(got):
@@ -981,7 +1117,7 @@ def main() -> None:
         ring = ring0()
         x_pre, x_post = traces(), traces()
         w_k, w_p = w_base.clone(), w_base.clone()
-        k4_in = (spk, *state_in, ext_ex, i_dc, x_pre, x_post, t_step)
+        k4_in = (spk, *state_in, ext_ex, i_dc, x_pre, x_post, t_dev)
         k4_kw = dict(n_exc=c.n_exc, budget=bud, prop=prop, coef=coef)
         out_k = K3.lif_deliver_plastic(ring.clone(), tables.targets, w_k,
                                        tables.dbins, pmask, *k4_in, **k4_kw)
@@ -1069,7 +1205,13 @@ def main() -> None:
     pol = sim.sim_config.kernels
     if pol.step != "fused":
         fail(f"auto policy resolved to {pol.describe()}, not fused")
-    sim.warmup()
+    if not sim.backend.graphed:
+        fail("the main path's session is not the graphed loop")
+    t0 = time.perf_counter()
+    sim.warmup(args.t_sim)              # the run's graphs and the presim's
+    sim.warmup(20.0, include_presim=False)      # the profiled window's
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
     _build.reset_launches()
     res = sim.run(args.t_sim)
     fused_launches = dict(_build.launches)
@@ -1080,7 +1222,9 @@ def main() -> None:
         tables_to_device_s=f"{setup_s:.1f}", presim_ms=sim.t_presim,
         run_ms=args.t_sim, steps=res.n_steps, wall_s=res.wall_s,
         rtf=res.rtf, ms_per_step=ms_step, overflow=res.overflow,
-        spikes_per_step=float(res["pop_counts"].sum()) / res.n_steps)
+        spikes_per_step=float(res["pop_counts"].sum()) / res.n_steps,
+        graph_steps=sim.backend.graph_steps, capture_s=capture_s,
+        graphs=json.dumps(sim.backend.graphs.stats()), card=json.dumps(card))
     say("rates_hz", **{p: f"{r:.3f}" for p, r in zip(POPS, rates)})
     say("launches", path="fused", **fused_launches,
         steps_incl_presim=steps_total)
@@ -1098,6 +1242,55 @@ def main() -> None:
     # against the unprofiled wall time per step
     say("main_path_profile", **profile_window(sim, 20.0, ms_step))
 
+    # the graphed loop against the eager one, from one state; the eager
+    # loop's own time a step (the same connectome, the same card)
+    eager = Simulator(cfg, connectome=c, device=dev, backend="instrumented")
+    say("graph_draws", **graph_draws(sim.backend, args.seed))
+    say("graph_static", policy=pol.describe(),
+        **hold_to_eager("graph_static", sim, eager, 30.0, atomics=True))
+    eager_res = eager.run(100.0)
+    say("main_path_eager", backend="instrumented",
+        policy=eager.sim_config.kernels.describe(), steps=eager_res.n_steps,
+        rtf=eager_res.rtf,
+        ms_per_step=eager_res.wall_s / eager_res.n_steps * 1e3,
+        timers_s=json.dumps(eager_res.timers), graphed_ms_per_step=ms_step,
+        card=json.dumps(card))
+    del eager
+
+    # run_chunked on the main path: chunks 2..N capture nothing, and the
+    # result is the one run's from the same state and generator state
+    start, gen0 = clone_state(sim.state), sim._generator.get_state()
+    t_chunk, n_chunks = 10.0, 5
+    sim.warmup(t_chunk * n_chunks, include_presim=False)
+    one = sim.run(t_chunk * n_chunks)
+    one_state = {k: v.clone() for k, v in state_tensors(sim.state).items()}
+    sim.state = clone_state(start)
+    sim._generator.set_state(gen0)
+    misses = []
+    chunked = sim.run_chunked(t_chunk * n_chunks, t_chunk,
+                              callback=lambda i, r: misses.append(
+                                  sim.backend.graphs.misses))
+    if len(set(misses)) != 1:
+        fail(f"run_chunked: chunks 2..{n_chunks} captured new graphs "
+             f"(graph-cache misses after each chunk: {misses})")
+    if not np.array_equal(chunked["pop_counts"], one["pop_counts"]):
+        fail("run_chunked's population counts differ from run's")
+    bits = {}
+    for name, x in state_tensors(sim.state).items():
+        y = one_state[name]
+        bits[name] = int((x.view(torch.int32) != y.view(torch.int32)).sum()) \
+            if x.dtype == torch.float32 else int((x != y).sum())
+        if name in ATOMIC_FED:
+            if not torch.allclose(x, y, rtol=RING_RTOL, atol=RING_ATOL):
+                fail(f"run_chunked's {name} beyond rtol = atol = "
+                     f"{RING_RTOL} of run's")
+        elif bits[name]:
+            fail(f"run_chunked's {name} differs from run's")
+    say("run_chunked", chunks=n_chunks, steps=chunked.n_steps,
+        graph_misses_after_each_chunk=json.dumps(misses),
+        pop_counts_equal=True, elements_with_other_bits=json.dumps(bits))
+    del start, one, one_state, chunked
+
     del sim
     torch.cuda.empty_cache()
 
@@ -1106,7 +1299,7 @@ def main() -> None:
                                    seed=args.seed, t_presim=0.0,
                                    kernels="split")
     sim = Simulator(split_cfg, connectome=c, device=dev)
-    sim.warmup()
+    sim.warmup(100.0)
     _build.reset_launches()
     res_s = sim.run(100.0)
     split_launches = dict(_build.launches)
@@ -1119,7 +1312,11 @@ def main() -> None:
             or split_launches["ell_deliver"] != res_s.n_steps:
         fail(f"split path launched K1/K2 {split_launches} for "
              f"{res_s.n_steps} steps")
-    del sim
+    eager = Simulator(split_cfg, connectome=c, device=dev,
+                      backend="instrumented")
+    say("graph_split", policy=sim.sim_config.kernels.describe(),
+        **hold_to_eager("graph_split", sim, eager, 30.0, atomics=True))
+    del sim, eager
     torch.cuda.empty_cache()
 
     # -- 7. the plastic path --------------------------------------------------
@@ -1135,7 +1332,8 @@ def main() -> None:
     rule = sim.backend.bound
     pmask, w_static = rule.plastic_mask, sim.backend.net.tables.weights
     w_max = float(np.float32(rule.coef.w_max))
-    sim.warmup()
+    sim.warmup(args.t_sim_plastic)
+    sim.warmup(20.0, include_presim=False)
     if not bitwise(sim.state[1].weights, w_static):
         fail("warmup changed the session's plastic weights")
     mean_before = float(PL.mean_plastic_weight(sim.state[1].weights, pmask))
@@ -1188,6 +1386,21 @@ def main() -> None:
         fail(f"plastic path launched {plastic_launches} for {steps_pl} "
              f"steps")
     say("plastic_path_profile", **profile_window(sim, 20.0, ms_step_pl))
+    # the graphed plastic loop (its head steps and whole-table clip at the
+    # start of the run) against the eager split plastic loop, from one state
+    eager = Simulator(cfg, connectome=c, plasticity="pair_stdp", device=dev,
+                      backend="instrumented")
+    say("graph_plastic", policy=pol.describe(),
+        **hold_to_eager("graph_plastic", sim, eager, 30.0, atomics=True))
+    eager_res = eager.run(30.0)
+    say("plastic_path_eager", backend="instrumented",
+        policy=eager.sim_config.kernels.describe(), steps=eager_res.n_steps,
+        rtf=eager_res.rtf,
+        ms_per_step=eager_res.wall_s / eager_res.n_steps * 1e3,
+        timers_s=json.dumps(eager_res.timers), graphed_ms_per_step=ms_step_pl,
+        card=json.dumps(card))
+    del eager, eager_res
+    torch.cuda.empty_cache()
     spikes_pl = max(1, round(float(res_pl["pop_counts"].sum())
                              / res_pl.n_steps))
     tables = sim.backend.net.tables
@@ -1208,10 +1421,10 @@ def main() -> None:
     # entries with a real target (padding is skipped), per call on average
     n_entries = float(np.mean([(c.targets[i] < N).sum() for i in ids_np]))
     ring = ring0()
-    k2 = timed(lambda i: K2.ell_deliver(ring, *tbl, spk_of(i), t_step,
+    k2 = timed(lambda i: K2.ell_deliver(ring, *tbl, spk_of(i), t_dev,
                                         c.n_exc, budget_main))
     k2_plain = timed(lambda i: K2.ell_deliver_plain(
-        ring, *tbl, spk_of(i), t_step, c.n_exc, budget_main))
+        ring, *tbl, spk_of(i), t_dev, c.n_exc, budget_main))
 
     def flat_rows(ids):                 # index_add_'s inputs for one call
         ids_t = torch.as_tensor(ids, device=dev)
@@ -1227,7 +1440,7 @@ def main() -> None:
     k3_bytes = (N * (6 * 4 + 4 * 4 + 1) + N          # state, drive, spikes
                 + 2 * 2 * (N + 1) * 4                # slot read + zeroed
                 + 4 * budget_main + 4 + n_entries * (12 + 8))
-    k3_state = (*state_in, ext_ex, i_dc, t_step)
+    k3_state = (*state_in, ext_ex, i_dc, t_dev)
     k3 = timed(lambda i: K3.lif_deliver(
         ring, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
         prop=prop))
@@ -1237,6 +1450,24 @@ def main() -> None:
     say("timing", spikes=spikes_per_step, real_entries=n_entries,
         K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
         K2_index_add=json.dumps(k2_lib))
+
+    # the pop_counts probe (a running count differenced at the population
+    # bounds) against the index_add_ into 8 counters that it replaced, on
+    # the same spike vectors: equal counts, and each one's device time
+    from repro_torch.api import probes as PR
+    pop_of = torch.as_tensor(c.pop_of, device=dev)
+    pc_probe = PR.pop_counts()
+    pc_ctx = [PR.ProbeContext(None, x, SimpleNamespace(pop_of=pop_of), 8)
+              for x in spks]
+    old_counts = lambda i: torch.zeros(8, dtype=torch.int32, device=dev) \
+        .index_add_(0, pop_of, spk_of(i).to(torch.int32))
+    for i in range(len(spks)):
+        if not torch.equal(pc_probe(pc_ctx[i]), old_counts(i)):
+            fail("the pop_counts probe differs from index_add_'s counts")
+    say("pop_counts_probe", spikes=spikes_per_step, counts_equal=True,
+        running_count=json.dumps(timed(lambda i: pc_probe(
+            pc_ctx[i % len(pc_ctx)]))),
+        index_add=json.dumps(timed(old_counts)))
 
     def k3_on(r):
         return lambda i, **kw: K3.lif_deliver(
@@ -1277,7 +1508,7 @@ def main() -> None:
         graph_ms=k3["graph_ms"], ms=k3["ms"], call_ms=k3["call_ms"])
 
     def k2_on(r):
-        return lambda i, **kw: K2.ell_deliver(r, *tbl, spk_of(i), t_step,
+        return lambda i, **kw: K2.ell_deliver(r, *tbl, spk_of(i), t_dev,
                                               c.n_exc, budget_main, **kw)
 
     say("K2_phases", spikes=spikes_per_step, launches=64,
@@ -1300,7 +1531,7 @@ def main() -> None:
     x_pre_t, x_post_t = traces(), traces()
     spks_pl = [spiked_with(spikes_pl) for _ in range(64)]
     ids_pl = [compact_ids_plain(x, budget_main)[0] for x in spks_pl]
-    k4_state = (*state_in, ext_ex, i_dc, x_pre_t, x_post_t, t_step)
+    k4_state = (*state_in, ext_ex, i_dc, x_pre_t, x_post_t, t_dev)
     k4_kw = dict(n_exc=c.n_exc, budget=budget_main, prop=prop,
                  coef=rule.coef)
     k4 = timed(lambda i: K3.lif_deliver_plastic(
@@ -1385,6 +1616,7 @@ def main() -> None:
     for mode in ("reference", "split"):
         s = Simulator(small_d, kernels=mode, probes=("spikes", "pop_counts"),
                       device=dev)
+        s.warmup(100.0)
         _build.reset_launches()
         r = s.run(100.0)
         k5_n = _build.launches["gated_spike_matvec"]
@@ -1432,7 +1664,8 @@ def main() -> None:
         fail(f"auto policy of the dense path resolved to {pol.describe()}, "
              f"not split with K5 on the bin-major table")
     Nd, Dd = c_d.n_total, c_d.d_max_bins
-    sim.warmup()
+    sim.warmup(args.t_sim_dense)
+    sim.warmup(20.0, include_presim=False)
     _build.reset_launches()
     res_d = sim.run(args.t_sim_dense)
     dense_launches = dict(_build.launches)
@@ -1471,8 +1704,8 @@ def main() -> None:
     for table, counts in ((W, (0, 1, 5, 64, over)), (W_bf, (5, over))):
         for k in counts:
             spk, r0 = spiked_d(k), ring_d()
-            got = K5.dense_deliver(r0.clone(), table, spk, t_step, c_d.n_exc)
-            want = K5.dense_deliver_plain(r0.clone(), table, spk, t_step,
+            got = K5.dense_deliver(r0.clone(), table, spk, t_dev, c_d.n_exc)
+            want = K5.dense_deliver_plain(r0.clone(), table, spk, t_dev,
                                           c_d.n_exc)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -1498,10 +1731,10 @@ def main() -> None:
     # windows, recorded only 2 of its 4 kernels in one run)
     spks_d = [spiked_d(spikes_d) for _ in range(64)]
     ring = ring_d()
-    k5d = timed(lambda i: K5.dense_deliver(ring, W, spks_d[i], t_step,
+    k5d = timed(lambda i: K5.dense_deliver(ring, W, spks_d[i], t_dev,
                                            c_d.n_exc))
     k5d_plain = timed(lambda i: K5.dense_deliver_plain(
-        ring, W, spks_d[i], t_step, c_d.n_exc))
+        ring, W, spks_d[i], t_dev, c_d.n_exc))
     s_lib = [x.float() for x in spks_d[:4]]
     lib_ms = call_ms(lambda i: torch.matmul(s_lib[i % 4], W), iters=4,
                      warm=1)
@@ -1512,7 +1745,53 @@ def main() -> None:
     say("timing_dense", spikes=spikes_d, K5=json.dumps(k5d),
         K5_plain=json.dumps(k5d_plain),
         library_batched_matmul_tf32_off=json.dumps(k5d_lib))
-    del sim, W, ring, spks_d, s_lib
+    del W, ring, spks_d, s_lib
+
+    # (e) the graphed dense loop against the eager one, from one state.
+    # Two 43.8 GB tables do not fit the card at once, so the graphed
+    # session runs first, its results go to the host, and the eager
+    # session is built once the graphed one is freed.  K1 and K5 add in a
+    # fixed order: every tensor is held bitwise.
+    start, gen0 = clone_state(sim.state), sim._generator.get_state()
+    n_hold = 300
+    sim.warmup(n_hold * 0.1, probes=("pop_counts", "spikes"),
+               include_presim=False)
+    res_g = sim.run(n_hold * 0.1, probes=("pop_counts", "spikes"))
+    graphed = {k: v.cpu() for k, v in state_tensors(sim.state).items()}
+    gen_g = sim._generator.get_state()
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = Simulator(cfg_d, connectome=c_d, device=dev,
+                      backend="instrumented")
+    eager.state = start
+    eager._generator.set_state(gen0)
+    res_e = eager.run(n_hold * 0.1, presim_ms=0,
+                      probes=("pop_counts", "spikes"))
+    for name in res_g.data:
+        if not np.array_equal(res_g[name], res_e[name]):
+            fail(f"graph_dense: the graphed loop's {name} differs from the "
+                 f"eager loop's")
+    if not torch.equal(gen_g, eager._generator.get_state()):
+        fail("graph_dense: the generators' states differ after the run")
+    for name, x in state_tensors(eager.state).items():
+        if not bitwise(x.cpu(), graphed[name]):
+            fail(f"graph_dense: {name} differs from the eager loop's")
+    eager_res = eager.run(30.0)
+    say("graph_dense", scale=args.scale_dense, steps=res_g.n_steps,
+        spikes=int(res_g["spikes"].sum()),
+        exact=json.dumps(sorted(graphed) + sorted(res_g.data)
+                         + ["generator"]),
+        graphed_ms_per_step=res_g.wall_s / res_g.n_steps * 1e3,
+        eager_ms_per_step=res_e.wall_s / res_e.n_steps * 1e3)
+    say("dense_path_eager", backend="instrumented",
+        policy=eager.sim_config.kernels.describe(), steps=eager_res.n_steps,
+        rtf=eager_res.rtf,
+        ms_per_step=eager_res.wall_s / eager_res.n_steps * 1e3,
+        timers_s=json.dumps(eager_res.timers), graphed_ms_per_step=ms_step_d,
+        card=json.dumps(card))
+    del eager, start, graphed
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- 10. K6 and the LM layers at Qwen3-32B widths -------------------------

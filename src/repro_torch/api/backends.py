@@ -1,43 +1,86 @@
-"""The engine backend behind the port's ``Simulator``.
+"""The engine backends behind the port's ``Simulator``.
 
-``FusedBackend`` is the counterpart of ``repro.api.backends.FusedBackend``::
+A backend owns the device tables and speaks the reference's protocol
+(``repro/api/backends.py:64-213``)::
 
-    build(connectome, sim_config, device)          # host tables -> device
-    init(generator) -> state                       # fresh dynamical state
-    run(state, n_steps, probes) -> (state', {probe: [n_steps, ...]})
+    build(connectome, sim_config, device)     # host tables -> device
+    init(generator) -> state                  # fresh dynamical state
+    warmup(state, n_steps, probes)            # ready a run; state untouched
+    run(state, n_steps, probes, stream=None) -> (state', data)
 
-The reference runs the steps in one ``lax.scan``; here a Python loop drives
-them, and nothing in it reads the device back to the host (the overflow
-counter and the probe outputs stay on the device until the run ends).  With
-a resolved policy whose ``step == "fused"`` each iteration is one launch of
-kernel K3 in the rotated order, and an epilogue delivers the last step's
-spikes (``repro/api/backends.py:381-404``); otherwise each iteration is
-``update_phase`` + ``deliver_phase`` (``:405-417``).  Both leave the same
-state.  ``run`` advances ``state`` in place where the ring is concerned.
+``data`` maps each per-step probe's name to a ``[n_steps, ...]`` tensor
+and each stream probe's name to its carry after the run; ``stream`` seeds
+the stream carries (``{name: carry}``; missing ones start from
+``probe.init``).  Two engines (``make_backend``):
 
-With ``plasticity=`` (a rule, bound in ``build``) the state is the pair
-``(SimState, PlasticState)`` and the plastic weights are updated in place
-too.  The fused plastic loop (``pair_stdp`` only, ``:426-482``) is K4 then
-``stdp_update``'s potentiation and clip per step, and an epilogue that
-delivers the last spikes through the live table and runs a whole STDP
-step; the split plastic loop (``:483-500``) is update, delivery through
-the live table and a whole STDP step.  Each STDP update works on the ids
-its step's delivery compacted (K4's, K2's, or the plain version's on the
-CPU), never on a second compaction.  Each run clips the whole table once,
-in its first STDP update, and then only what a step touched.  Two points
-where the reference's fused loop differs from its split loop are kept to
-the split loop here: the first iteration of a run delivers no spikes, so
-it leaves the traces as they are (the reference decays them once more
-there), and the whole-table clip follows the first spikes' depression and
-potentiation (the reference clips before them).
+* ``fused`` -- the production loop, static or with a plasticity rule.  On
+  CPU tensors its steps run eagerly, one after the other.  On a card the
+  loop is captured into CUDA graphs, the counterpart of the reference's
+  jitted ``lax.scan`` (``:216-227``): the host launches one graph per
+  ``graph_steps`` steps instead of a dozen ops per step.  There is no
+  fallback: a capture that fails raises.
+* ``instrumented`` -- the eager phase-split loop with per-phase wall timers
+  (``update``, ``deliver``, ``plasticity`` in a plastic session, and
+  ``record``), each phase synchronised, as the reference's
+  (``:512-637``).  It is the port's eager reference on the card.  Unlike
+  the reference's, it also runs a plasticity rule (the split plastic
+  loop), so that the graphed plastic loop has an eager twin to be held to.
+
+The steps.  With a resolved policy whose ``step == "fused"`` a step is one
+launch of K3 in the rotated order (deliver step ``t - 1``'s spikes, then
+integrate step ``t``), and an epilogue after the last step delivers its
+spikes (``:381-404``); otherwise a step is ``update_phase`` +
+``deliver_phase`` (``:405-417``).  Both leave the same state.  With a
+plasticity rule the state is the pair ``(SimState, PlasticState)``.  The
+fused plastic step (``pair_stdp`` only, ``:426-482``) is K4 then
+``stdp_update``'s potentiation and clip, and the epilogue delivers the
+last spikes through the live table and runs their whole STDP step; the
+split plastic step (``:483-500``) is update, delivery through the live
+table and a whole STDP step.  Each STDP update works on the ids its
+step's delivery compacted.  Each run clips the whole table once, in its
+first STDP update, and then only what a step touched.  Two points where
+the reference's fused loop differs from its split loop are kept to the
+split loop here: a run's first iteration delivers no spikes, so it leaves
+the traces as they are, and the whole-table clip follows the first
+spikes' depression and potentiation.  So a run's first steps differ from
+the rest: the fused plastic loop's first two, the split plastic loop's
+first one (``head`` steps).  The ring and the plastic weights are
+updated in place.
+
+The graphs (``FusedBackend`` on a card).  Every graph reads and writes one
+set of static buffers, the backend's: the state a graph was first captured
+with (V, the currents, refrac, ring, ``t``, overflow, the rotated loop's
+previous spikes; in a plastic session the traces and the live table),
+adopted, not copied.  A run copies a state that is not those buffers into
+them, replays, and returns them, so replays chain and a run advances its
+state in place.  Per key ``(n_steps, probes, graph_steps)`` the
+:class:`~repro_torch.api.graph_cache.GraphCache` holds a head graph of the
+run's first ``head`` steps, a body graph of ``graph_steps`` steady steps,
+replayed ``(n_steps - head) // graph_steps`` times, and a remainder graph;
+each copies its last step's state back into the static buffers and writes
+its probes' rows into the key's ``[n_steps, ...]`` outputs at a row counter
+on the device.  Stream carries are static buffers of the key, copied in
+before the replays and out after.  The epilogue runs after the last replay.
+The session's generator is registered with every graph, so each replay
+draws the Poisson counts the eager loop would draw next.  Before its first
+capture the backend runs each kind of step once eagerly on a copy of the
+state (building the kernels, their workspaces and argument packs), and
+before each capture it evaluates the probes once on the static state, so
+that nothing is first built inside a capture.  A replay adds the launches
+its graph holds to ``kernels._build.launches``, as the captured wrappers
+would have.
 """
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+import dataclasses
+import gc
+import time
+from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.api.probes import Probe, ProbeContext
+from repro_torch.api.graph_cache import GraphCache
+from repro_torch.api.probes import ProbeContext, StreamProbe, split_probes
 from repro_torch.core import delivery as dlv
 from repro_torch.core import plasticity as PL
 from repro_torch.core import stimulus as stim
@@ -49,21 +92,118 @@ from repro_torch.core.engine import (SimConfig, SimState, deliver_phase,
                                      update_phase)
 from repro_torch.core.neuron import Propagators
 from repro_torch.core.params import NeuronParams
+from repro_torch.kernels import _build
+
+#: steps in a body graph: replays of fewer steps pay more launches, longer
+#: bodies more capture time and memory, for nothing (PERF.md §6)
+GRAPH_STEPS = 100
 
 
-class FusedBackend:
-    """The production loop, static or with a plasticity rule."""
+class Carry(NamedTuple):
+    """What one step hands the next."""
+    sim: SimState
+    ps: Any                             # PlasticState, plastic runs only
+    spk_prev: Optional[torch.Tensor]    # the rotated loop's last spikes
+    streams: tuple                      # stream probes' carries
 
-    name = "fused"
+
+def tree_map(fn, x):
+    """``fn`` on every tensor of a NamedTuple / tuple / list / dict tree;
+    anything else (None, a generator) kept as it is."""
+    if isinstance(x, torch.Tensor):
+        return fn(x)
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*(tree_map(fn, v) for v in x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(tree_map(fn, v) for v in x)
+    if isinstance(x, dict):
+        return {k: tree_map(fn, v) for k, v in x.items()}
+    return x
+
+
+def _leaves(x) -> list:
+    out = []
+    tree_map(out.append, x)
+    return out
+
+
+def _copy_into(dst, src) -> None:
+    """Copy every tensor of ``src`` into its place in ``dst`` (the same
+    tree), skipping the ones that are the same tensor."""
+    for a, b in zip(_leaves(dst), _leaves(src), strict=True):
+        if a is not b:
+            a.copy_(b)
+
+
+def _clone_generator(gen: Optional[torch.Generator]):
+    if gen is None:
+        return None
+    twin = torch.Generator(device=gen.device)
+    twin.set_state(gen.get_state())
+    return twin
+
+
+def _force_split_step(cfg: SimConfig) -> SimConfig:
+    """Per-step-dispatch backends have no one-kernel path: pin the resolved
+    policy's step to the phase-split loop (its other choices untouched)."""
+    if cfg.kernels is not None and cfg.kernels.step == "fused":
+        cfg = dataclasses.replace(
+            cfg, kernels=dataclasses.replace(cfg.kernels, step="split"))
+    return cfg
+
+
+class Backend:
+    """Protocol base; concrete backends override build / init / run."""
+
+    name: str = "abstract"
+
+    def build(self, c: Connectome, cfg: SimConfig, device) -> None:
+        raise NotImplementedError
+
+    def init(self, generator: torch.Generator) -> Any:
+        raise NotImplementedError
+
+    def run(self, state: Any, n_steps: int, probes: Sequence,
+            stream: Optional[Dict[str, Any]] = None
+            ) -> Tuple[Any, Dict[str, Any]]:
+        raise NotImplementedError
+
+    def warmup(self, state: Any, n_steps: int, probes: Sequence) -> None:
+        """Ready a ``run`` of this length; must not change ``state``."""
+
+    def supports_probe(self, probe) -> bool:
+        return True
+
+    def _normalize_cfg(self, cfg: SimConfig) -> SimConfig:
+        """Backend-specific fixup of the resolved config (identity here)."""
+        return cfg
+
+    def caches(self) -> Tuple[GraphCache, ...]:
+        """Every :class:`GraphCache` this backend owns: what
+        ``Simulator.run_chunked`` watches for captures."""
+        return tuple(v for v in vars(self).values()
+                     if isinstance(v, GraphCache))
+
+    def overflow(self, state: Any) -> int:
+        """Cumulative spike-budget overflow of ``state`` (one host read)."""
+        sim = state if isinstance(state, SimState) else state[0]
+        return int(sim.overflow.item())
+
+
+class _LoopBackend(Backend):
+    """The tables, the steps and the probes' record, shared by both
+    engines."""
 
     def __init__(self, plasticity=None):
         self.plasticity = None if plasticity is None \
             else PL.resolve_rule(plasticity)
+        self.timers: Dict[str, float] = {}
 
     def build(self, c: Connectome, cfg: SimConfig, device) -> None:
         self.device = torch.device(device)
         kind = None if self.plasticity is None else self.plasticity.kind
-        cfg = resolve_sim_config(cfg, c, self.device, plastic=kind)
+        cfg = self._normalize_cfg(resolve_sim_config(cfg, c, self.device,
+                                                     plastic=kind))
         # checked before the tables are built (the dense one is O(N^2))
         if self.plasticity is not None \
                 and not dlv.get_strategy(cfg.strategy).supports_live_weights:
@@ -78,9 +218,13 @@ class FusedBackend:
         self.n_pops = len(c.pop_sizes)
         self.drive = stim.compile_drive(cfg.stimulus, c, cfg, neuron,
                                         self.device)
+        self.strategy = dlv.get_strategy(cfg.strategy)
         self.bound = None
         if self.plasticity is not None:
             self.bound = self.plasticity.bind(c, cfg, self.net.tables)
+        self._step = self._fused_step if self.fused else self._split_step
+        # the steps that differ from the steady one at the start of a run
+        self.head = 0 if self.bound is None else (2 if self.fused else 1)
 
     @property
     def fused(self) -> bool:
@@ -93,99 +237,424 @@ class FusedBackend:
                          self.cfg.state_dtype)
         return sim if self.bound is None else (sim, self.bound.init())
 
-    def run(self, state, n_steps: int, probes: Sequence[Probe]
-            ) -> Tuple[object, Dict[str, torch.Tensor]]:
-        """Advance ``n_steps``; returns (state', {probe name: [n_steps,
-        ...] tensor on the device})."""
-        outs = [[] for _ in probes]
+    # -- the steps ----------------------------------------------------------
 
-        def record(sim, spiked, ps=None):
-            ctx = ProbeContext(sim, spiked, self.net, self.n_pops, ps,
-                               None if ps is None
-                               else self.bound.plastic_mask)
-            for buf, p in zip(outs, probes):
-                buf.append(p(ctx))
+    def _deliver_live(self, sim: SimState, ps, spiked, t):
+        """Deliver through the live table; returns (sim', ids), the
+        delivery's compacted ids being the STDP update's rows."""
+        live = self.strategy.live_tables(self.net.tables, ps.weights)
+        ring, ids, ovf = self.strategy.deliver_ids(
+            sim.ring, live, spiked, t, self.c.n_exc, self.cfg)
+        return sim._replace(ring=ring, overflow=sim.overflow + ovf), ids
 
-        if self.bound is None:
-            state = self._run_static(state, n_steps, record)
+    def _fused_step(self, carry: Carry, i: int, tick=None):
+        """Step ``i`` of a run (any ``i >= head`` is the steady step) of the
+        rotated loop: K3, or K4 and the potentiation of step ``i - 1``'s
+        spikes (the whole-table clip at ``i == 1``)."""
+        c, sim, ps = self.c, carry.sim, carry.ps
+        if ps is None:
+            sim, spiked = fused_update_phase(
+                sim, self.net, self.prop, self.cfg, c.w_ext, c.n_total,
+                c.n_exc, carry.spk_prev, self.drive)
+            return carry._replace(sim=sim, spk_prev=spiked), spiked
+        x_pre = ps.x_pre                        # before the bump K4 makes
+        sim, ps, spiked, ids = fused_plastic_update_phase(
+            sim, ps, self.net, self.prop, self.cfg, c.w_ext, c.n_total,
+            c.n_exc, carry.spk_prev, self.drive, self.bound, trace=i > 0)
+        if i > 0:                               # step i - 1's spikes
+            PL.stdp_pot_clip(ps.weights, x_pre, ids, self.bound.tables,
+                             self.bound.coef, clip_all=i == 1,
+                             kernel=self.bound.kernel)
+        return carry._replace(sim=sim, ps=ps, spk_prev=spiked), spiked
+
+    def _split_step(self, carry: Carry, i: int, tick=None):
+        """Step ``i`` of a run of the split loop: update, delivery and (in
+        a plastic session) the whole STDP step, the whole-table clip at
+        ``i == 0``.  ``tick(phase)``, when given, marks each phase's end."""
+        c, sim, ps = self.c, carry.sim, carry.ps
+        tick = tick or (lambda phase: None)
+        sim, spiked = update_phase(sim, self.net, self.prop, self.cfg,
+                                   c.w_ext, c.n_total, self.drive)
+        tick("update")
+        if ps is None:
+            sim = deliver_phase(sim, self.net, self.cfg, spiked, c.n_exc)
+            tick("deliver")
         else:
-            state = self._run_plastic(state, n_steps, record)
+            sim, ids = self._deliver_live(sim, ps, spiked, sim.t)
+            sim = sim._replace(t=sim.t + 1)
+            tick("deliver")
+            ps = self.bound.step(ps, spiked, ids, clip_all=i == 0)
+            tick("plasticity")
+        return carry._replace(sim=sim, ps=ps), spiked
+
+    def _epilogue(self, carry: Carry, n_steps: int) -> Carry:
+        """After the rotated loop: deliver its last spikes at their phase
+        ``t - 1`` (and run their whole STDP step)."""
+        if not (self.fused and n_steps):
+            return carry
+        sim, spk = carry.sim, carry.spk_prev
+        if carry.ps is None:
+            ring, ovf = self.strategy.deliver(sim.ring, self.net.tables, spk,
+                                              sim.t - 1, self.c.n_exc,
+                                              self.cfg)
+            return carry._replace(sim=sim._replace(
+                ring=ring, overflow=sim.overflow + ovf))
+        sim, ids = self._deliver_live(sim, carry.ps, spk, sim.t - 1)
+        ps = self.bound.step(carry.ps, spk, ids, clip_all=n_steps == 1)
+        return carry._replace(sim=sim, ps=ps)
+
+    def _record(self, carry: Carry, spiked, step_probes, stream_probes):
+        """The probes' values for this step, and the stream carries
+        advanced."""
+        ctx = ProbeContext(carry.sim, spiked, self.net, self.n_pops,
+                           carry.ps, None if carry.ps is None
+                           else self.bound.plastic_mask)
+        streams = tuple(p.update(sc, ctx if p.needs == "ctx" else spiked)
+                        for p, sc in zip(stream_probes, carry.streams))
+        return carry._replace(streams=streams), tuple(p(ctx)
+                                                      for p in step_probes)
+
+    def _segment(self, carry: Carry, first: int, length: int, step_probes,
+                 stream_probes, tick=None):
+        """Steps ``first .. first + length - 1`` of a run (each past the
+        head the steady one), recorded: returns the carry and each step
+        probe's list of values.  ``tick(None)`` marks each step's start and
+        ``tick("record")`` the probes' end."""
+        outs = [[] for _ in step_probes]
+        for j in range(length):
+            if tick:
+                tick(None)
+            carry, spiked = self._step(carry, min(first + j, self.head),
+                                       tick)
+            if step_probes or stream_probes:
+                carry, vals = self._record(carry, spiked, step_probes,
+                                           stream_probes)
+                if tick:
+                    tick("record")
+                for buf, v in zip(outs, vals):
+                    buf.append(v)
+        return carry, outs
+
+    def _data(self, carry: Carry, outs, step_probes, stream_probes) -> dict:
+        """``run``'s data from an eager loop's carry and values."""
         data = {p.name: (torch.stack(buf) if buf else
                          torch.empty((0,), device=self.device))
-                for p, buf in zip(probes, outs)}
-        return state, data
+                for p, buf in zip(step_probes, outs)}
+        data.update(zip((p.name for p in stream_probes), carry.streams))
+        return data
 
-    def _run_static(self, state: SimState, n_steps: int, record):
-        c, cfg, prop, drive, net = self.c, self.cfg, self.prop, self.drive, \
-            self.net
-        n, n_exc = c.n_total, c.n_exc
-        if self.fused:
-            spk_prev = torch.zeros(n, dtype=torch.bool, device=self.device)
-            for _ in range(n_steps):
-                state, spk_prev = fused_update_phase(
-                    state, net, prop, cfg, c.w_ext, n, n_exc, spk_prev,
-                    drive)
-                record(state, spk_prev)
-            if n_steps:
-                # epilogue: the rotated loop leaves the last step's spikes
-                # undelivered -- land them at their true phase t - 1
-                ring, ovf = dlv.get_strategy(cfg.strategy).deliver(
-                    state.ring, net.tables, spk_prev, state.t - 1, n_exc,
-                    cfg)
-                state = state._replace(ring=ring,
-                                       overflow=state.overflow + ovf)
-        else:
-            for _ in range(n_steps):
-                state, spiked = update_phase(state, net, prop, cfg,
-                                             c.w_ext, n, drive)
-                state = deliver_phase(state, net, cfg, spiked, n_exc)
-                record(state, spiked)
-        return state
+    # -- state in and out ---------------------------------------------------
 
-    def _run_plastic(self, state, n_steps: int, record):
-        c, cfg, prop, drive, net = self.c, self.cfg, self.prop, self.drive, \
-            self.net
-        n, n_exc, bound = c.n_total, c.n_exc, self.bound
-        strategy = dlv.get_strategy(cfg.strategy)
-        sim, ps = state
+    def _split_state(self, state):
+        return (state, None) if self.bound is None else state
 
-        def deliver_live(sim, ps, spiked, t):
-            """Deliver through the live table; returns (sim', ids), the
-            delivery's compacted ids being the STDP update's rows."""
-            live = strategy.live_tables(net.tables, ps.weights)
-            ring, ids, ovf = strategy.deliver_ids(sim.ring, live, spiked, t,
-                                                  n_exc, cfg)
-            return sim._replace(ring=ring, overflow=sim.overflow + ovf), ids
+    def _state_of(self, carry: Carry):
+        return carry.sim if self.bound is None else (carry.sim, carry.ps)
 
-        if self.fused:
-            spk_prev = torch.zeros(n, dtype=torch.bool, device=self.device)
-            for i in range(n_steps):
-                x_pre = ps.x_pre                # before the bump K4 makes
-                sim, ps, spiked, ids = fused_plastic_update_phase(
-                    sim, ps, net, prop, cfg, c.w_ext, n, n_exc, spk_prev,
-                    drive, bound, trace=i > 0)
-                if i > 0:                       # step i - 1's spikes
-                    PL.stdp_pot_clip(ps.weights, x_pre, ids, bound.tables,
-                                     bound.coef, clip_all=i == 1,
-                                     kernel=bound.kernel)
-                spk_prev = spiked
-                record(sim, spiked, ps)
-            if n_steps:
-                # epilogue: deliver the last spikes through the live table
-                # and run their whole STDP step
-                sim, ids = deliver_live(sim, ps, spk_prev, sim.t - 1)
-                ps = bound.step(ps, spk_prev, ids, clip_all=n_steps == 1)
-        else:
-            for i in range(n_steps):
-                sim, spiked = update_phase(sim, net, prop, cfg, c.w_ext, n,
-                                           drive)
-                sim, ids = deliver_live(sim, ps, spiked, sim.t)
-                sim = sim._replace(t=sim.t + 1)
-                ps = bound.step(ps, spiked, ids, clip_all=i == 0)
-                record(sim, spiked, ps)
-        return sim, ps
+    def _carry(self, state, stream_probes, stream) -> Carry:
+        """A run's first carry: ``state``, the rotated loop's zero spikes,
+        the stream carries given or fresh."""
+        sim, ps = self._split_state(state)
+        spk = torch.zeros(self.c.n_total, dtype=torch.bool,
+                          device=self.device) if self.fused else None
+        return Carry(sim, ps, spk, self._stream_carries(stream_probes,
+                                                        stream))
 
-    def overflow(self, state) -> int:
-        """Cumulative spike-budget overflow (one host read)."""
-        sim = state if self.bound is None else state[0]
-        return int(sim.overflow.item())
+    def _stream_carries(self, stream_probes, stream) -> tuple:
+        stream = stream or {}
+        return tuple(stream[p.name] if stream.get(p.name) is not None
+                     else p.init(self.device) for p in stream_probes)
+
+    def _warm_eagerly(self, state) -> None:
+        """Each kind of step once, then the epilogue, on a copy of ``state``
+        and of its generator: builds and loads every kernel and its
+        workspace and argument pack; the state is untouched."""
+        sim, ps = self._split_state(tree_map(torch.clone, state))
+        sim = sim._replace(generator=_clone_generator(sim.generator))
+        carry = self._carry(sim if ps is None else (sim, ps), (), None)
+        for i in range(self.head + 1):
+            carry, _ = self._step(carry, i)
+        self._epilogue(carry, self.head + 1)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+class _Graph:
+    """One captured CUDA graph of ``fn``, which draws from ``generator``:
+    the launches it holds by kernel, added to ``_build.launches`` at each
+    replay (the capture itself launches nothing)."""
+
+    def __init__(self, fn: Callable[[], None], generator, pool):
+        graph = torch.cuda.CUDAGraph()
+        if generator is not None:
+            if not hasattr(graph, "register_generator_state"):
+                raise RuntimeError(
+                    f"torch {torch.__version__} cannot register a "
+                    f"generator with a CUDA graph: the graphed loop's "
+                    f"Poisson draws would repeat at every replay")
+            graph.register_generator_state(generator)
+        before = dict(_build.launches)
+        # A graph that dies during the capture (a dropped session's, freed
+        # by the cycle collector) is destroyed there, which voids the
+        # capture: collect first, and not while capturing.
+        gc.collect()
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=pool):
+                fn()
+        finally:
+            if gc_on:
+                gc.enable()
+            captured = {k: _build.launches[k] - before[k] for k in before}
+            _build.launches.update(before)
+        self.graph = graph
+        # the function's closure holds tensors the graph reads (the rows'
+        # offsets); their memory must not go back to the allocator
+        self.fn = fn
+        self.launches = {k: v for k, v in captured.items() if v}
+
+    def replay(self, times: int = 1) -> None:
+        for _ in range(times):
+            self.graph.replay()
+        for k, v in self.launches.items():
+            _build.launches[k] += v * times
+
+    @staticmethod
+    def new_pool():
+        """A memory pool for a backend's graphs: they never run at once,
+        and none leaves a tensor of its pool alive for another."""
+        return torch.cuda.graph_pool_handle()
+
+
+@dataclasses.dataclass(eq=False)
+class GraphSet:
+    """What the graph cache holds for one key: the graphs with their
+    replay counts, the probes' ``[n_steps, ...]`` outputs, the row counter
+    they are written at, and the stream carries."""
+    graphs: list                      # [(graph, times)]
+    outs: list                        # per step probe, [n_steps, ...]
+    row: torch.Tensor                 # 0-d int64: the next row to write
+    streams: tuple                    # per stream probe, its carry
+
+    def replay(self) -> None:
+        for graph, times in self.graphs:
+            graph.replay(times)
+
+
+class FusedBackend(_LoopBackend):
+    """The production loop, static or with a plasticity rule: eager on CPU
+    tensors, captured in CUDA graphs on a card (the module's docstring).
+    ``graph_steps`` is the body graph's length."""
+
+    name = "fused"
+    graph_type = _Graph
+
+    def __init__(self, plasticity=None, graph_steps: int = GRAPH_STEPS):
+        super().__init__(plasticity)
+        if graph_steps < 1:
+            raise ValueError(f"graph_steps must be >= 1, got {graph_steps}")
+        self.graph_steps = int(graph_steps)
+        self.graphs = GraphCache("fused.graphs")
+
+    def build(self, c, cfg, device) -> None:
+        super().build(c, cfg, device)
+        self.graphs.clear()
+        self._io: Optional[Carry] = None     # the static buffers
+        self._warm = False
+        self._pool = None
+
+    @property
+    def graphed(self) -> bool:
+        return self.device.type == "cuda"
+
+    def _key(self, n_steps: int, probes) -> tuple:
+        return (int(n_steps), tuple(probes), self.graph_steps)
+
+    def warmup(self, state, n_steps, probes) -> None:
+        """On a card: capture the graphs of a run of ``n_steps`` with
+        ``probes`` (nothing runs on ``state``); on the CPU nothing."""
+        if self.graphed:
+            probes = tuple(probes)
+            self.graphs.get_or_build(
+                self._key(n_steps, probes),
+                lambda: self._capture(state, n_steps, probes))
+
+    def run(self, state, n_steps: int, probes: Sequence,
+            stream: Optional[Dict[str, Any]] = None):
+        probes = tuple(probes)
+        if self.graphed:
+            return self._run_graphed(state, n_steps, probes, stream)
+        step_probes, stream_probes = split_probes(probes)
+        carry, outs = self._segment(
+            self._carry(state, stream_probes, stream), 0, n_steps,
+            step_probes, stream_probes)
+        carry = self._epilogue(carry, n_steps)
+        return self._state_of(carry), self._data(carry, outs, step_probes,
+                                                 stream_probes)
+
+    # -- the graphs ----------------------------------------------------------
+
+    def _static(self, state) -> Carry:
+        """The static buffers; the first state asked for is adopted."""
+        if self._io is None:
+            sim, ps = self._split_state(state)
+            spk = torch.zeros(self.c.n_total, dtype=torch.bool,
+                              device=self.device) if self.fused else None
+            self._io = Carry(sim, ps, spk, ())
+        return self._io
+
+    def _load(self, state) -> Carry:
+        """Copy ``state`` into the static buffers (what already is one is
+        left alone), and its generator's state into theirs."""
+        io = self._static(state)
+        sim, ps = self._split_state(state)
+        _copy_into((io.sim, io.ps), (sim, ps))
+        if sim.generator is not io.sim.generator:
+            io.sim.generator.set_state(sim.generator.get_state())
+        return io
+
+    def _capture(self, state, n_steps: int, probes: tuple) -> GraphSet:
+        io = self._static(state)
+        if not self._warm:
+            self._warm_eagerly(self._state_of(io))
+            self._pool = self.graph_type.new_pool()
+            self._warm = True
+        step_probes, stream_probes = split_probes(probes)
+        dev = self.device
+        # every probe once, eagerly, on the static state: the outputs'
+        # shapes, and whatever a probe builds at its first call
+        spk0 = torch.zeros(self.c.n_total, dtype=torch.bool, device=dev)
+        carry0 = Carry(io.sim, io.ps, None,
+                       tuple(p.init(dev) for p in stream_probes))
+        _, vals = self._record(carry0, spk0, step_probes, stream_probes)
+        entry = GraphSet(
+            graphs=[], outs=[torch.empty((n_steps, *v.shape), dtype=v.dtype,
+                                         device=dev) for v in vals],
+            row=torch.zeros((), dtype=torch.int64, device=dev),
+            streams=carry0.streams)
+        head = min(self.head, n_steps)
+        n_body, rem = divmod(n_steps - head, self.graph_steps)
+        for first, length, times in ((0, head, 1),
+                                     (self.head, self.graph_steps, n_body),
+                                     (self.head, rem, 1)):
+            if length and times:
+                entry.graphs.append((self._graph(io, entry, first, length,
+                                                 step_probes,
+                                                 stream_probes), times))
+        return entry
+
+    def _graph(self, io: Carry, entry: GraphSet, first: int, length: int,
+               step_probes, stream_probes) -> _Graph:
+        """A graph of ``length`` steps from step ``first`` on: the static
+        buffers in and out, the probes' rows at ``entry.row``."""
+        rows = torch.arange(length, dtype=torch.int64, device=self.device)
+
+        def segment():
+            static = Carry(io.sim, io.ps, io.spk_prev, entry.streams)
+            carry, outs = self._segment(static, first, length, step_probes,
+                                        stream_probes)
+            _copy_into(static, carry)
+            at = entry.row + rows
+            for out, buf in zip(entry.outs, outs):
+                out.index_copy_(0, at, torch.stack(buf))
+            entry.row.add_(length)
+        return self.graph_type(segment, io.sim.generator, self._pool)
+
+    def _run_graphed(self, state, n_steps, probes, stream):
+        step_probes, stream_probes = split_probes(probes)
+        entry = self.graphs.get_or_build(
+            self._key(n_steps, probes),
+            lambda: self._capture(state, n_steps, probes))
+        io = self._load(state)
+        _copy_into(entry.streams,
+                   self._stream_carries(stream_probes, stream))
+        entry.row.zero_()
+        if io.spk_prev is not None:
+            io.spk_prev.zero_()
+        entry.replay()
+        carry = self._epilogue(io._replace(streams=()), n_steps)
+        _copy_into((io.sim, io.ps), (carry.sim, carry.ps))
+        data = {p.name: out.clone()
+                for p, out in zip(step_probes, entry.outs)}
+        data.update((p.name, tree_map(torch.clone, sc))
+                    for p, sc in zip(stream_probes, entry.streams))
+        return self._state_of(io), data
+
+
+class InstrumentedBackend(_LoopBackend):
+    """The eager phase-split loop, each phase synchronised and timed: the
+    paper's per-phase breakdown (Fig. 1b).  Cumulative seconds per phase
+    accumulate in ``self.timers``."""
+
+    name = "instrumented"
+
+    def __init__(self, plasticity=None):
+        super().__init__(plasticity)
+        self._warmed = False
+
+    def supports_probe(self, probe) -> bool:
+        # the loop feeds stream probes the bare spike vector
+        return not (isinstance(probe, StreamProbe)
+                    and probe.needs != "spiked")
+
+    def _normalize_cfg(self, cfg):
+        return _force_split_step(cfg)
+
+    def build(self, c, cfg, device) -> None:
+        super().build(c, cfg, device)
+        self._warmed = False
+
+    def warmup(self, state, n_steps, probes) -> None:
+        """One step of each kind on a copy of ``state``: the kernels are
+        built and loaded before the timers run."""
+        if not self._warmed:
+            self._warm_eagerly(state)
+            self._warmed = True
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, state, n_steps: int, probes: Sequence,
+            stream: Optional[Dict[str, Any]] = None):
+        step_probes, stream_probes = split_probes(tuple(probes))
+        self.warmup(state, n_steps, probes)
+        mark = [0.0]
+
+        def tick(phase):
+            """The phase's seconds since the last mark, once the card is
+            done with it; ``None`` only sets the mark."""
+            if phase is not None:
+                self._sync()
+            now = time.perf_counter()
+            if phase is not None:
+                self.timers[phase] = (self.timers.get(phase, 0.0) + now
+                                      - mark[0])
+            mark[0] = now
+
+        carry, outs = self._segment(
+            self._carry(state, stream_probes, stream), 0, n_steps,
+            step_probes, stream_probes, tick)
+        return self._state_of(carry), self._data(carry, outs, step_probes,
+                                                 stream_probes)
+
+
+REGISTRY = {
+    "fused": FusedBackend,
+    "instrumented": InstrumentedBackend,
+}
+
+
+def make_backend(spec, *, plasticity=None) -> Backend:
+    """Resolve a backend name or instance, with its plasticity rule."""
+    if isinstance(spec, Backend):
+        if plasticity is not None \
+                and getattr(spec, "plasticity", None) is None:
+            raise ValueError("pass plasticity= to the backend constructor "
+                             "when supplying a backend instance")
+        return spec
+    if spec not in REGISTRY:
+        raise ValueError(f"unknown backend {spec!r}; "
+                         f"available: {sorted(REGISTRY)}")
+    return REGISTRY[spec](plasticity=plasticity)

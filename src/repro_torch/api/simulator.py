@@ -4,9 +4,11 @@
     from repro_torch.configs.microcircuit import MicrocircuitConfig
 
     sim = Simulator(MicrocircuitConfig(scale=1.0, strategy="ell"))
-    sim.warmup()
+    sim.warmup(1000.0)               # capture the run's graphs (and presim's)
     res = sim.run(1000.0)            # 100 ms presim (untimed), then 1 s
     print(res.rtf, res.summary()["rates_hz"])
+
+    res = sim.run_chunked(10_000.0, chunk_ms=1000.0)   # 10 chunks, one graph
 
     plastic = Simulator(MicrocircuitConfig(scale=1.0, strategy="ell"),
                         plasticity="pair_stdp")   # E->E pair STDP
@@ -14,23 +16,27 @@
 
 The session runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 a machine without CUDA, ``Simulator(...)`` with no device raises instead of
-carrying on on the CPU.  ``run_chunked``, ``run_batch``, checkpoints and
-the instrumented and sharded backends wait for later slices.
+carrying on on the CPU.  The backend is ``"fused"`` (on a card its loop is
+captured in CUDA graphs) or ``"instrumented"`` (the eager phase-split loop
+with per-phase timers); see ``repro_torch.api.backends``.  ``run_batch``,
+checkpoints and the sharded backend wait for later slices.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 import warnings
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.api import probes as probes_mod
-from repro_torch.api.backends import FusedBackend
+from repro_torch.api import results as results_mod
+from repro_torch.api.backends import Backend, make_backend, tree_map
 from repro_torch.api.results import RunResult
+from repro_torch.core import stimulus as stimulus_mod
 from repro_torch.core.connectivity import Connectome, build_connectome
-from repro_torch.core.engine import SimConfig, SimState
+from repro_torch.core.engine import SimConfig
 from repro_torch.core.plasticity import PlasticState
 
 
@@ -54,24 +60,29 @@ class Simulator:
     """A simulation session: one network, one backend, many runs.
 
     ``config`` is a model config (``MicrocircuitConfig``); ``connectome``
-    skips the build.  ``plasticity`` is a rule (a registry kind name such
-    as ``"pair_stdp"``, a spec dict or a ``PlasticityRule``); the session's
-    state is then the pair ``(SimState, PlasticState)``.  ``kernels=`` (a
-    mode string), ``stimulus=`` (a timeline) and other ``SimConfig`` fields
-    go in ``**overrides``.  ``config.seed`` seeds both the connectome and
-    the session's ``torch.Generator``.
+    skips the build.  ``backend`` is ``"fused"``, ``"instrumented"`` or a
+    :class:`~repro_torch.api.backends.Backend`.  ``plasticity`` is a rule
+    (a registry kind name such as ``"pair_stdp"``, a spec dict or a
+    ``PlasticityRule``); the session's state is then the pair
+    ``(SimState, PlasticState)``.  ``stimulus`` is a timeline (kind names,
+    dicts or ``Stimulus`` instances; it replaces the default 8 Hz
+    background, so name the background when stimulation should ride on
+    it).  ``kernels=`` (a mode string) and other ``SimConfig`` fields go in
+    ``**overrides``.  ``config.seed`` seeds the connectome and, unless
+    ``key`` is given, the session's ``torch.Generator``.
     """
 
     def __init__(self, config, *, connectome: Optional[Connectome] = None,
-                 probes: Sequence = ("pop_counts",), device=None,
-                 plasticity=None, **overrides):
+                 backend="fused", probes: Sequence = ("pop_counts",),
+                 device=None, plasticity=None, stimulus=None,
+                 key: Optional[int] = None, **overrides):
         self.device = session_device(device)
         self.config = config
-        self.seed = int(config.seed)
+        seed = int(config.seed)
         if connectome is None:
             connectome = build_connectome(
                 scale=config.scale, n_scaling=config.n_scaling,
-                k_scaling=config.k_scaling, seed=self.seed, dt=config.dt)
+                k_scaling=config.k_scaling, seed=seed, dt=config.dt)
         self.connectome = connectome
         sim_config = SimConfig(
             dt=config.dt, strategy=config.strategy,
@@ -80,23 +91,38 @@ class Simulator:
             stimulus=config.stimulus, kernels=config.kernels)
         if overrides:
             sim_config = dataclasses.replace(sim_config, **overrides)
+        if stimulus is not None:
+            sim_config = dataclasses.replace(
+                sim_config, stimulus=stimulus_mod.resolve_timeline(stimulus))
         self.t_presim = float(config.t_presim)
-        self.backend = FusedBackend(plasticity=plasticity)
+        self.backend: Backend = make_backend(backend, plasticity=plasticity)
         self.plasticity = self.backend.plasticity
         self.backend.build(connectome, sim_config, self.device)
         self.sim_config = self.backend.cfg          # resolved
         self.probes = probes_mod.resolve(probes)
+        self._check_probes(self.probes)
+        self._key = seed if key is None else int(key)
+        # one generator for the session's life: the graphs draw from it
+        self._generator = torch.Generator(device=self.device)
         self.reset()
 
     # -- session state ------------------------------------------------------
 
-    def reset(self) -> None:
-        """Fresh dynamical state (the presim transient applies again)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(self.seed)
-        self._state = self.backend.init(gen)
+    def reset(self, key: Optional[int] = None) -> None:
+        """Fresh dynamical state (the presim transient applies again).
+        ``key`` re-seeds the session's generator (an int seed); without it
+        the generator starts again from the session's seed."""
+        if key is not None:
+            self._key = int(key)
+        self._generator.manual_seed(self._key)
+        self._state = self.backend.init(self._generator)
         self._presim_done = False
+        self._steps_done = 0
+        self._t_model_ms = 0.0
         self._overflow_seen = 0
+        # stream probes' carries (name -> device tree), threaded across the
+        # session's runs and chunks
+        self._stream_state = {}
 
     @property
     def state(self):
@@ -108,7 +134,8 @@ class Simulator:
     def state(self, value) -> None:
         """Carry a state in (e.g. from ``repro_torch.convert``): a
         ``SimState``, or in a plastic session the pair.  The session's
-        counters stay, so a pending presim runs from it."""
+        counters stay, so a pending presim runs from it.  The state's
+        generator, if any, hands its state to the session's."""
         if self.plasticity is not None:
             if not (isinstance(value, tuple) and len(value) == 2
                     and isinstance(value[1], PlasticState)):
@@ -127,13 +154,17 @@ class Simulator:
         if sim.ring.device != self.device:
             raise ValueError(f"state lies on {sim.ring.device}, the "
                              f"session on {self.device}")
-        if sim.generator is None:
-            sim = sim._replace(generator=self._sim_state().generator)
+        if sim.generator is not None \
+                and sim.generator is not self._generator:
+            self._generator.set_state(sim.generator.get_state())
+        sim = sim._replace(generator=self._generator)
         self._state = sim if ps is None else (sim, ps)
         self._overflow_seen = int(sim.overflow.item())
 
-    def _sim_state(self) -> SimState:
-        return self._state if self.plasticity is None else self._state[0]
+    @property
+    def timers(self):
+        """Per-phase cumulative seconds (instrumented backend only)."""
+        return getattr(self.backend, "timers", {})
 
     def _steps(self, t_ms: float) -> int:
         return int(round(t_ms / self.sim_config.dt))
@@ -142,55 +173,131 @@ class Simulator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _resolve(self, probes) -> tuple:
+        if probes is None:
+            return self.probes
+        pr = probes_mod.resolve(probes)
+        self._check_probes(pr)
+        return pr
+
+    def _check_probes(self, probes) -> None:
+        for p in probes:
+            if not self.backend.supports_probe(p):
+                raise NotImplementedError(
+                    f"backend {self.backend.name!r} does not support probe "
+                    f"{p.name!r}")
+
     # -- warmup / presim ----------------------------------------------------
 
-    def warmup(self) -> None:
-        """Build and load every kernel the run will launch, and run one
-        step on a copy of the state (device allocations, library loading),
-        so that a following ``run`` measures execution only.  The session
-        state is untouched: the ring and the plastic weights, which the
-        kernels update in place, are copied."""
-        st = self._sim_state()
-        gen = torch.Generator(device=self.device)
-        gen.set_state(st.generator.get_state())
-        scratch = SimState(st.neuron, st.ring.clone(), st.t, gen,
-                           st.overflow.clone())
-        if self.plasticity is not None:
-            scratch = (scratch, self._state[1]._replace(
-                weights=self._state[1].weights.clone()))
-        self.backend.run(scratch, 1, self.probes)
+    def warmup(self, t_ms: float, probes: Optional[Sequence] = None,
+               include_presim: bool = True) -> None:
+        """Ready a run of ``t_ms`` (and the pending presim's) so that a
+        following ``run`` of that length measures execution only: on a card
+        the fused backend captures its graphs, the instrumented one loads
+        its kernels.  The session state is untouched."""
+        pr = self._resolve(probes)
+        self.backend.warmup(self._state, self._steps(t_ms), pr)
+        if include_presim and self.t_presim > 0 and not self._presim_done:
+            self.backend.warmup(self._state, self._steps(self.t_presim), ())
         self._sync()
 
-    def _maybe_presim(self) -> None:
-        if self._presim_done or self.t_presim <= 0:
+    def _maybe_presim(self, presim_ms: Optional[float]) -> None:
+        t = self.t_presim if presim_ms is None else float(presim_ms)
+        if self._presim_done or t <= 0:
             return
-        self._state, _ = self.backend.run(self._state,
-                                          self._steps(self.t_presim), ())
+        self._state, _ = self.backend.run(self._state, self._steps(t), ())
         self._sync()
         self._presim_done = True
         self._check_overflow()
 
     # -- runs ---------------------------------------------------------------
 
-    def run(self, t_ms: float) -> RunResult:
+    def run(self, t_ms: float, *, presim_ms: Optional[float] = None,
+            probes: Optional[Sequence] = None) -> RunResult:
         """Simulate ``t_ms`` of model time.  The presim transient
-        (``config.t_presim``) runs untimed and unrecorded once per session
-        first, as in the paper's protocol."""
-        self._maybe_presim()
+        (``config.t_presim`` unless ``presim_ms`` is given) runs untimed and
+        unrecorded once per session first, as in the paper's protocol."""
+        pr = self._resolve(probes)
+        _, stream_probes = probes_mod.split_probes(pr)
+        self._maybe_presim(presim_ms)
         n_steps = self._steps(t_ms)
+        timers0 = dict(self.timers)
+        stream_in = {p.name: self._stream_state.get(p.name)
+                     for p in stream_probes}
         self._sync()
         t0 = time.perf_counter()
-        self._state, data = self.backend.run(self._state, n_steps,
-                                             self.probes)
+        self._state, data = self.backend.run(self._state, n_steps, pr,
+                                             stream=stream_in)
         self._sync()
         wall = time.perf_counter() - t0
+        self._steps_done += n_steps
+        self._t_model_ms += n_steps * self.sim_config.dt
+        timers = {k: v - timers0.get(k, 0.0)
+                  for k, v in self.timers.items()}
+        streams = {}
+        for p in stream_probes:
+            carry = data.pop(p.name)
+            self._stream_state[p.name] = carry
+            streams[p.name] = {"carry": tree_map(lambda x: x.cpu().numpy(),
+                                                  carry),
+                               "meta": dict(p.meta)}
         overflow = self._check_overflow()
         data = {k: v.cpu().numpy() for k, v in data.items()}
         return RunResult(
             data=data, t_model_ms=n_steps * self.sim_config.dt,
             n_steps=n_steps, dt=self.sim_config.dt, wall_s=wall,
-            overflow=overflow, device=self._device_name(),
-            _connectome=self.connectome)
+            overflow=overflow, device=self._device_name(), timers=timers,
+            streams=streams, _connectome=self.connectome)
+
+    def run_chunked(self, t_ms: float, chunk_ms: float, *,
+                    presim_ms: Optional[float] = None,
+                    probes: Optional[Sequence] = None,
+                    callback: Optional[Callable[[int, RunResult],
+                                                None]] = None,
+                    checkpoint_dir: Optional[str] = None) -> RunResult:
+        """``run`` split into chunks of ``chunk_ms``: the same result as one
+        ``run(t_ms)`` of the session (the state threads through the chunk
+        boundaries), with the probes' data on the host after each chunk and
+        ``callback(i, chunk_result)`` after chunk ``i``.  Chunks 2..N of a
+        length already run must capture nothing: a new capture raises.  A
+        ``DeliveryOverflowError`` under ``strict_delivery`` carries the
+        completed chunks as its ``partial``.  Checkpoints wait for the
+        checkpoint slice."""
+        if checkpoint_dir is not None:
+            raise NotImplementedError(
+                "run_chunked(checkpoint_dir=...): checkpoints are not "
+                "ported yet")
+        if chunk_ms <= 0:
+            raise ValueError("chunk_ms must be positive")
+        self._maybe_presim(presim_ms)
+        total = self._steps(t_ms)
+        per_chunk = max(1, self._steps(chunk_ms))
+        chunks, seen = [], set()
+        done = 0
+        while done < total:
+            n = min(per_chunk, total - done)
+            captures = self._captures()
+            try:
+                res = self.run(n * self.sim_config.dt, presim_ms=0,
+                               probes=probes)
+            except Exception as e:
+                from repro_torch.core.delivery import DeliveryOverflowError
+                if isinstance(e, DeliveryOverflowError) and chunks:
+                    e.partial = results_mod.concat(chunks)
+                raise
+            if n in seen and self._captures() != captures:
+                raise RuntimeError(
+                    f"run_chunked: chunk {len(chunks) + 1} ({n} steps, a "
+                    f"length already run) captured a new graph")
+            seen.add(n)
+            chunks.append(res)
+            done += n
+            if callback is not None:
+                callback(len(chunks), res)
+        return results_mod.concat(chunks)
+
+    def _captures(self) -> int:
+        return sum(cache.misses for cache in self.backend.caches())
 
     def _device_name(self) -> str:
         if self.device.type == "cuda":

@@ -9,6 +9,8 @@ Keys: ``targets``, ``weights``, ``dbins`` (the ``[N+1, K]`` event tables,
 sentinel row included), ``k_ext``, ``i_dc``, ``pop_of``, ``V``, ``I_ex``,
 ``I_in``, ``refrac``, ``ring`` (``[D, 2, N+1]``), ``t`` and ``overflow``.
 The JAX PRNG key has no counterpart: the port's state gets ``generator``.
+``t`` is the 0-d int32 step counter both ways (a tensor on the device in
+the port, as the reference's is a traced scalar).
 
 The LM layers' weights (``layer_params_to_torch`` /
 ``layer_params_to_numpy``) are a nested dict of arrays, the value tree
@@ -62,7 +64,7 @@ def to_torch(arrays: Dict[str, np.ndarray], device,
                          I_in=t("I_in", np.float32),
                          refrac=t("refrac", np.int32))
     state = SimState(neuron=neuron, ring=t("ring", np.float32),
-                     t=int(arrays["t"]), generator=generator,
+                     t=t("t", np.int32).reshape(()), generator=generator,
                      overflow=t("overflow", np.int32).reshape(()))
     return net, state
 
@@ -80,7 +82,7 @@ def to_numpy(net: Network, state: SimState) -> Dict[str, np.ndarray]:
         "I_in": host(state.neuron.I_in),
         "refrac": host(state.neuron.refrac),
         "ring": host(state.ring),
-        "t": np.asarray(state.t, np.int32),
+        "t": host(state.t).astype(np.int32).reshape(()),
         "overflow": host(state.overflow),
     }
 

@@ -22,6 +22,8 @@ out-adjacency with one sentinel source row at index N.
 
 ``deliver_ids`` also returns the step's compacted ids, which the plastic
 path hands to the STDP update instead of compacting the spikes again.
+The phase ``t`` every strategy takes is the step counter, a 0-d int32
+tensor on the ring's device; nothing reads it back to the host.
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ from repro_torch.core.connectivity import dense_bytes_estimate, dense_table
 from repro_torch.core.params import FULL_MEAN_RATES
 from repro_torch.kernels.ell_deliver import ell_deliver, ell_deliver_plain
 from repro_torch.kernels.spike_deliver import (dense_deliver,
-                                               dense_deliver_plain)
+                                               dense_deliver_plain, rolled)
 
 
 class DeliveryOverflowError(RuntimeError):
@@ -83,7 +85,7 @@ def make_event_tables(targets: np.ndarray, weights: np.ndarray,
 
 
 def deliver_dense(ring: torch.Tensor, tables: DenseTables,
-                  spiked: torch.Tensor, t: int, n_exc: int,
+                  spiked: torch.Tensor, t, n_exc: int,
                   kernel: bool = False):
     """Delay-binned dense delivery, ``ring`` updated in place.  Returns
     ``(ring, overflow)``; the overflow is always 0 (no spike budget).
@@ -108,7 +110,7 @@ def deliver_dense(ring: torch.Tensor, tables: DenseTables,
         upd_ex = torch.matmul(s[:n_exc], tables.W_ex).view(D, n)
         upd_in = torch.matmul(s[n_exc:], tables.W_in).view(D, n)
         upd = torch.stack([upd_ex, upd_in], dim=1).to(ring.dtype)
-        ring[:, :, :n] += torch.roll(upd, shifts=t, dims=0)
+        ring[:, :, :n] += rolled(upd, t)
         return ring, zero
     (dense_deliver if kernel else dense_deliver_plain)(
         ring, tables.W, spiked, t, n_exc)
@@ -159,15 +161,14 @@ class DeliveryStrategy:
         return tables._replace(weights=weights)
 
     def deliver_ids(self, ring: torch.Tensor, tables: Any,
-                    spiked: torch.Tensor, t: int, n_exc: int, cfg
+                    spiked: torch.Tensor, t, n_exc: int, cfg
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Scatter one step's spikes.  Returns (ring, ids, n_overflow):
         ``ids`` [budget] int32 are the delivered ids, ascending, then N."""
         raise NotImplementedError
 
     def deliver(self, ring: torch.Tensor, tables: Any, spiked: torch.Tensor,
-                t: int, n_exc: int, cfg) -> Tuple[torch.Tensor,
-                                                  torch.Tensor]:
+                t, n_exc: int, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
         """Scatter one step's spikes. Returns (ring, n_overflow)."""
         ring, _, overflow = self.deliver_ids(ring, tables, spiked, t, n_exc,
                                              cfg)

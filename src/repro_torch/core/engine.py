@@ -10,10 +10,14 @@ path (kernel K3).  The per-step loop lives in ``repro_torch.api.backends``
 Differences from the reference, all deliberate:
 
 * the ring is updated in place (one 28 MB ring per session at full scale);
-* the step counter ``t`` is a host integer (the host drives the loop, and
-  reading a device counter would stall it every step), while the overflow
-  counter stays on the device and is read once per run;
 * ``jax.random`` keys become one ``torch.Generator`` on the device.
+
+As in the reference, the step counter ``t`` is a 0-d int32 tensor on the
+session's device, like the overflow counter: the kernels read it there, the
+stimulus gates are tensor functions of it, and each step advances it with
+an op of its own.  Nothing on a step's path reads a device value back to
+the host, so a run of steps can be captured in a CUDA graph
+(``repro_torch.api.backends``).
 """
 from __future__ import annotations
 
@@ -27,6 +31,7 @@ from repro_torch.core import kernel_policy as kpol
 from repro_torch.core import stimulus as stim
 from repro_torch.core.connectivity import Connectome
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
+from repro_torch.kernels.lif_deliver import slot_index
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +79,7 @@ class Network(NamedTuple):
 class SimState(NamedTuple):
     neuron: NeuronState
     ring: torch.Tensor                # [D, 2, N+1], updated in place
-    t: int                            # step counter (ring phase), host int
+    t: torch.Tensor                   # 0-d int32 step counter, on device
     generator: Optional[torch.Generator]
     overflow: torch.Tensor            # 0-d int32, cumulative, on device
 
@@ -110,7 +115,9 @@ def init_state(net: Network, d_max_bins: int, generator: torch.Generator,
         I_in=torch.zeros(n, dtype=state_dtype, device=dev),
         refrac=torch.zeros(n, dtype=torch.int32, device=dev))
     ring = torch.zeros((d_max_bins, 2, n + 1), dtype=state_dtype, device=dev)
-    return SimState(neuron=neuron, ring=ring, t=0, generator=generator,
+    return SimState(neuron=neuron, ring=ring,
+                    t=torch.zeros((), dtype=torch.int32, device=dev),
+                    generator=generator,
                     overflow=torch.zeros((), dtype=torch.int32, device=dev))
 
 
@@ -132,7 +139,8 @@ def update_phase(state: SimState, net: Network, prop: Propagators,
                  cfg: SimConfig, w_ext: float, n: int, drive: stim.Drive):
     """Read the ring slot, add the external drive, integrate, detect
     spikes, and consume the slot.  Returns ``(state, spiked)``."""
-    arrivals = state.ring[state.t % state.ring.shape[0]]      # [2, N+1]
+    slot = slot_index(state.t, state.ring.shape[0])
+    arrivals = state.ring.index_select(0, slot)[0]           # [2, N+1]
     in_ex = arrivals[0, :n]
     in_in = arrivals[1, :n]
     ext_ex, i_dc = _external_drive(state, net, w_ext, in_ex.dtype, drive)
@@ -145,7 +153,7 @@ def update_phase(state: SimState, net: Network, prop: Propagators,
                                          i_dc)
     else:
         neuron, spiked = lif_step(state.neuron, prop, in_ex, in_in, i_dc)
-    arrivals.zero_()                  # consume the slot (after the reads)
+    state.ring.index_fill_(0, slot, 0.0)      # consume the slot
     return state._replace(neuron=neuron), spiked
 
 

@@ -8,9 +8,8 @@ pF, rates in Hz.
 
 A numpy-only copy of ``repro.core.params`` (the port imports nothing of the
 JAX package); the numbers must stay identical so both packages build the
-same connectome from the same seed.  What the main path does not use (the
-thalamic in-degrees of the ``thalamic_pulses`` stimulus) waits for the
-slice that needs it.
+same connectome from the same seed, and the ``thalamic_pulses`` stimulus
+the same in-degrees.
 """
 from __future__ import annotations
 
@@ -67,6 +66,33 @@ _K_EXT_CANONICAL = {
     "L5E": 2000, "L5I": 1900, "L6E": 2900, "L6I": 2100,
 }
 K_EXT = np.array([_K_EXT_CANONICAL[p] for p in POPULATIONS], dtype=np.int64)
+
+# Thalamic input (PD 2014 stimulation protocol): n_thal relay neurons
+# project onto L4 and L6 with these connection probabilities (canonical
+# order).  The ``thalamic_pulses`` stimulus (repro_torch.core.stimulus)
+# drives the resulting in-degrees with pulsed Poisson trains at the external
+# synaptic weight.
+N_THAL = 902
+_THAL_CONN_PROBS_CANONICAL = {
+    "L23E": 0.0, "L23I": 0.0, "L4E": 0.0983, "L4I": 0.0619,
+    "L5E": 0.0, "L5I": 0.0, "L6E": 0.0512, "L6I": 0.0196,
+}
+THAL_CONN_PROBS = np.array(
+    [_THAL_CONN_PROBS_CANONICAL[p] for p in POPULATIONS], dtype=np.float64)
+
+
+def thalamic_indegrees(k_scaling: float = 1.0) -> np.ndarray:
+    """Per-population thalamic in-degree at ``k_scaling`` (fixed_total_number
+    rule, multapses allowed -- the formula of :func:`synapse_numbers`)."""
+    n_full = np.array([N_FULL[p] for p in POPULATIONS], dtype=np.float64)
+    prod = n_full * float(N_THAL)
+    with np.errstate(divide="ignore"):
+        k_full = np.where(
+            THAL_CONN_PROBS > 0,
+            np.log1p(-THAL_CONN_PROBS) / np.log1p(-1.0 / prod),
+            0.0,
+        )
+    return k_full / n_full * float(k_scaling)
 
 # Stationary firing rates of the full-scale model (Hz), used for the
 # down-scaling DC compensation (van Albada et al. 2015) and as the validation

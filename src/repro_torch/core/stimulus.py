@@ -1,11 +1,29 @@
 """Stimulus protocols: the declarative external drive.
 
-The port's counterpart of ``repro.core.stimulus``, with the pieces the main
-path needs: the :class:`Stimulus` registry, :class:`CompiledStimulus` in
-its separable ``basis x gate`` form and its general ``fn`` form, the
-:class:`Drive` the engine evaluates once per step, and the paper's
-``poisson_background``.  The other kinds (``dc``, ``step_current``,
-``thalamic_pulses``) wait for a later slice.
+The port's counterpart of ``repro.core.stimulus``: the :class:`Stimulus`
+registry (each kind a frozen dataclass, ``to_dict`` / ``from_dict`` for
+JSON), :class:`CompiledStimulus` in its separable ``basis x gate`` form and
+its general ``fn`` form, the :class:`Drive` the engine evaluates once per
+step, and the four built-ins::
+
+    poisson_background(rate_hz=8.0)   the paper's drive: k_ext Poisson
+                                      sources per neuron at rate_hz
+    dc(amplitude_pa=None)             DC current; None derives the mean
+                                      current of the background it replaces
+    step_current(amplitude_pa=...)    a current step into chosen
+                                      populations over a window
+    thalamic_pulses(...)              the PD-2014 thalamic pulses into L4/L6
+
+``Drive.plan`` and ``padded_bases``, which only the reference's sharded
+engine uses, wait for the sharded slice.
+
+A gate is a tensor function of the step counter ``t`` (the engine's 0-d
+int32 tensor on the session's device), as the reference's are functions of
+its traced counter: a window is ``((t >= start) & (t < stop))`` as float32.
+So a run captured in a CUDA graph evaluates every gate on the device, at
+the counter of its replay.  An always-on stimulus has ``gate=None`` and
+pays no gate op (the paper's background among them).  Windows are in
+absolute session model time (``t * dt``), which includes the presim.
 
 Randomness: ``jax.random`` keys become one ``torch.Generator`` per session,
 living on the session's device.  Each stochastic stimulus draws from it in
@@ -20,6 +38,8 @@ from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch.core import params as P
 
 REGISTRY: Dict[str, type] = {}
 
@@ -48,14 +68,14 @@ class CompiledStimulus:
 
     Separable form: ``basis`` is a per-neuron ``[N]`` float32 array
     (expected spike count per step for ``"spikes"``, pA for
-    ``"current"``) and ``gate`` an optional scalar function of the step
-    counter (``None`` = always on).  General form: ``fn(generator,
-    t_step, state) -> (I_ext | None, ext_in | None)`` on the session's
-    device.
+    ``"current"``) and ``gate`` an optional float32 tensor function of the
+    step counter (``None`` = always on).  General form: ``fn(generator,
+    t, state) -> (I_ext | None, ext_in | None)`` on the session's device,
+    ``t`` the counter tensor.
     """
     channel: str                                  # "spikes" | "current"
     basis: Optional[np.ndarray] = None            # [N] float32
-    gate: Optional[Callable] = None               # t_step -> float
+    gate: Optional[Callable] = None               # t -> 0-d float32 tensor
     fn: Optional[Callable] = None                 # general escape hatch
     stochastic: bool = False                      # draws from the generator
 
@@ -78,9 +98,9 @@ class Drive:
     compiled: Tuple[CompiledStimulus, ...]
     bases: Tuple[Optional[torch.Tensor], ...] = ()
 
-    def __call__(self, generator: Optional[torch.Generator], t_step: int,
-                 state):
-        """Evaluate every stimulus at ``t_step``; sums per channel.
+    def __call__(self, generator: Optional[torch.Generator], t_step, state):
+        """Evaluate every stimulus at step ``t_step`` (the counter tensor);
+        sums per channel.
 
         Returns ``(I_ext, ext_in)`` with ``None`` for a channel no stimulus
         feeds.  ``ext_in`` is an int32 spike count, as in the reference
@@ -107,18 +127,40 @@ class Drive:
 
 @dataclasses.dataclass(frozen=True)
 class Stimulus:
-    """Base class: a declarative, hashable stimulus (a frozen dataclass
-    registered via :func:`register`) that compiles against a connectome."""
+    """Base class: a declarative, hashable, JSON-serializable stimulus (a
+    frozen dataclass registered via :func:`register`) that compiles against
+    a connectome."""
 
     kind = "abstract"
 
     def compile(self, c, cfg, neuron) -> CompiledStimulus:
         raise NotImplementedError
 
+    def to_dict(self) -> dict:
+        d = {"kind": self.kind}
+        d.update(dataclasses.asdict(self))
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "Stimulus":
+        d = dict(d)
+        kind = d.pop("kind", None)
+        if kind not in REGISTRY:
+            raise ValueError(f"unknown stimulus kind {kind!r}; "
+                             f"registered: {list(available_stimuli())}")
+        cls = REGISTRY[kind]
+        known = {f.name for f in dataclasses.fields(cls)}
+        unknown = set(d) - known
+        if unknown:
+            raise ValueError(f"unknown field(s) {sorted(unknown)} for "
+                             f"stimulus {kind!r} (known: {sorted(known)})")
+        return cls(**d)
+
 
 def resolve_timeline(spec) -> Tuple[Stimulus, ...]:
-    """Normalise a timeline: kind names and instances mix freely."""
-    if isinstance(spec, (Stimulus, str)):
+    """Normalise a timeline: kind names, dicts (through
+    :meth:`Stimulus.from_dict`) and instances mix freely."""
+    if isinstance(spec, (Stimulus, str, dict)):
         spec = (spec,)
     out = []
     for s in spec:
@@ -127,9 +169,11 @@ def resolve_timeline(spec) -> Tuple[Stimulus, ...]:
                 raise ValueError(f"unknown stimulus kind {s!r}; "
                                  f"registered: {list(available_stimuli())}")
             s = REGISTRY[s]()
+        elif isinstance(s, dict):
+            s = Stimulus.from_dict(s)
         elif not isinstance(s, Stimulus):
-            raise TypeError(f"stimulus must be a kind name or Stimulus, "
-                            f"got {type(s)}")
+            raise TypeError(f"stimulus must be a kind name, dict or "
+                            f"Stimulus, got {type(s)}")
         out.append(s)
     return tuple(out)
 
@@ -145,19 +189,46 @@ def compile_drive(stimuli, c, cfg, neuron, device) -> Drive:
     return Drive(compiled=compiled, bases=bases)
 
 
+# ---------------------------------------------------------------------------
+# Shared helpers for the built-ins
+# ---------------------------------------------------------------------------
+
 def _window_gate(t_start_ms: float, t_stop_ms: Optional[float], dt: float):
-    """Scalar 0/1 gate over [t_start, t_stop); ``None`` when always on (the
+    """0/1 float32 gate over [t_start, t_stop); ``None`` when always on (the
     always-on background then costs no extra op)."""
     start = int(round(t_start_ms / dt))
     stop = None if t_stop_ms is None else int(round(t_stop_ms / dt))
     if start <= 0 and stop is None:
         return None
 
-    def gate(t_step: int) -> float:
-        on = t_step >= start and (stop is None or t_step < stop)
-        return 1.0 if on else 0.0
+    def gate(t):
+        on = t >= start
+        if stop is not None:
+            on = on & (t < stop)
+        return on.to(torch.float32)
     return gate
 
+
+def _population_mask(c, populations) -> np.ndarray:
+    """[N] float32 membership mask; ``None`` selects every population."""
+    if populations is None:
+        return np.ones(c.n_total, np.float32)
+    names = tuple(populations)
+    unknown = set(names) - set(P.POPULATIONS)
+    if unknown:
+        raise ValueError(f"unknown population(s) {sorted(unknown)}; "
+                         f"model has {list(P.POPULATIONS)}")
+    sel = np.array([P.POPULATIONS.index(p) for p in names])
+    return np.isin(np.asarray(c.pop_of), sel).astype(np.float32)
+
+
+def _tupled(value):
+    return value if value is None else tuple(value)
+
+
+# ---------------------------------------------------------------------------
+# Built-in registry entries
+# ---------------------------------------------------------------------------
 
 @register("poisson_background")
 @dataclasses.dataclass(frozen=True)
@@ -176,3 +247,94 @@ class PoissonBackground(Stimulus):
             channel="spikes", basis=basis,
             gate=_window_gate(self.t_start_ms, self.t_stop_ms, cfg.dt),
             stochastic=True)
+
+
+@register("dc")
+@dataclasses.dataclass(frozen=True)
+class DCInput(Stimulus):
+    """DC current drive (pA per neuron).
+
+    ``amplitude_pa=None`` derives the mean current of the Poisson
+    background it replaces (NEST microcircuit ``poisson_input=False``):
+    ``I = 1e-3 * tau_syn_ex * rate_hz * k_ext * w_ext``.  An explicit
+    amplitude applies uniformly over the selected ``populations``.
+    """
+    amplitude_pa: Optional[float] = None
+    rate_hz: float = 8.0            # used only when amplitude_pa is None
+    populations: Optional[Tuple[str, ...]] = None
+    t_start_ms: float = 0.0
+    t_stop_ms: Optional[float] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "populations", _tupled(self.populations))
+
+    def compile(self, c, cfg, neuron) -> CompiledStimulus:
+        mask = _population_mask(c, self.populations)
+        if self.amplitude_pa is None:
+            amp = (1e-3 * neuron.tau_syn_ex * self.rate_hz
+                   * np.asarray(c.k_ext, np.float64) * float(c.w_ext))
+        else:
+            amp = float(self.amplitude_pa)
+        basis = (mask * amp).astype(np.float32)
+        return CompiledStimulus(
+            channel="current", basis=basis,
+            gate=_window_gate(self.t_start_ms, self.t_stop_ms, cfg.dt),
+            stochastic=False)
+
+
+@register("step_current")
+@dataclasses.dataclass(frozen=True)
+class StepCurrent(Stimulus):
+    """Constant current step into selected populations over a window."""
+    amplitude_pa: float = 0.0
+    populations: Optional[Tuple[str, ...]] = None
+    t_start_ms: float = 0.0
+    t_stop_ms: Optional[float] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "populations", _tupled(self.populations))
+
+    def compile(self, c, cfg, neuron) -> CompiledStimulus:
+        basis = (_population_mask(c, self.populations)
+                 * np.float32(self.amplitude_pa)).astype(np.float32)
+        return CompiledStimulus(
+            channel="current", basis=basis,
+            gate=_window_gate(self.t_start_ms, self.t_stop_ms, cfg.dt),
+            stochastic=False)
+
+
+@register("thalamic_pulses")
+@dataclasses.dataclass(frozen=True)
+class ThalamicPulses(Stimulus):
+    """PD-2014 thalamic stimulation: ``n_thal=902`` relay neurons firing at
+    ``rate_hz`` during ``duration_ms`` pulses every ``interval_ms``, into
+    L4E/L4I/L6E/L6I through ``params.THAL_CONN_PROBS``; the in-degrees
+    scale with the connectome's ``k_scaling``, and deliveries use the
+    external weight ``w_ext``."""
+    rate_hz: float = 120.0
+    start_ms: float = 700.0
+    interval_ms: float = 1000.0
+    duration_ms: float = 10.0
+    n_pulses: Optional[int] = None   # None: pulse until the run ends
+
+    def compile(self, c, cfg, neuron) -> CompiledStimulus:
+        k_th = P.thalamic_indegrees(getattr(c, "k_scaling", 1.0))
+        basis = (k_th[np.asarray(c.pop_of)]
+                 * np.float64(self.rate_hz * cfg.dt * 1e-3)
+                 ).astype(np.float32)
+        start = int(round(self.start_ms / cfg.dt))
+        interval = max(1, int(round(self.interval_ms / cfg.dt)))
+        duration = int(round(self.duration_ms / cfg.dt))
+        n_pulses = self.n_pulses
+
+        def gate(t):
+            since = t - start
+            in_pulse = (since >= 0) & (torch.remainder(since, interval)
+                                       < duration)
+            if n_pulses is not None:
+                in_pulse = in_pulse & (torch.div(
+                    since, interval, rounding_mode="floor") < n_pulses)
+            return in_pulse.to(torch.float32)
+
+        return CompiledStimulus(channel="spikes", basis=basis, gate=gate,
+                                stochastic=True)

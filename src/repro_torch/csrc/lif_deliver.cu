@@ -13,6 +13,11 @@
 // spikes at ring phase t_prev, then integrate step t_prev + 1 against ring
 // slot (t_prev + 1) % D and consume that slot; K2 stops after the delivery
 // (its t_prev is the step t it delivers at).
+// The step counter t is read from device memory, the session's 0-d int32
+// counter: K3 and K4 take t_prev = *t - 1, K2 t_prev = *t.  No form writes
+// the counter; the engine advances it with a separate op after the launch,
+// so no block can read a value another block has already advanced, and a
+// launch captured in a CUDA graph reads the counter its replay finds.
 //
 // On the TPU the grid runs in order on one core, so the LIF update can
 // simply be the last grid row, and K2's scatter goes to a ring update held
@@ -135,7 +140,8 @@ struct StepIO {                       // this step's tensors
   float* x_pre_o;                     // K4: [N] new buffers
   float* x_post_o;
   unsigned long long* stamps;         // [grid, kStamps], stamped launches
-  int t_prev;
+  const int* t;                       // [1] the step counter, on the card
+  int t_shift;                        // t_prev = *t + t_shift: K3/K4 -1, K2 0
   int trace;   // K4: 0 in the rotated loop's first step: no spikes were
                // delivered, and the traces must not decay an extra step
 };
@@ -257,6 +263,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   unsigned long long* words = k.ws + 1;
   cg::grid_group grid = cg::this_grid();
   const int g = b * kBlock + threadIdx.x, threads = G * kBlock;
+  const int t_prev = *io.t + io.t_shift;
   stamp<kStamps, kStamped>(io.stamps, 0);
   if (threadIdx.x == 0) launch_no = ld_relaxed(k.ws);
 
@@ -333,7 +340,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (tg[u] >= n) continue;       // padding (weight 0), or no entry
-      const int slot = (io.t_prev + bin[u]) % k.d_bins;
+      const int slot = (t_prev + bin[u]) % k.d_bins;
       atomicAdd(io.ring + (static_cast<size_t>(slot) * 2 + ch[u]) * n_cols +
                     tg[u],
                 w[u]);
@@ -348,7 +355,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   stamp<kStamps, kStamped>(io.stamps, 6);
 
   // 3. LIF update against the just-delivered slot, which it then consumes
-  const int slot = (io.t_prev + 1) % k.d_bins;
+  const int slot = (t_prev + 1) % k.d_bins;
   float* row_ex = io.ring + static_cast<size_t>(slot) * 2 * n_cols;
   float* row_in = row_ex + n_cols;
   for (int i = g; i < n_cols; i += threads) {
@@ -422,13 +429,13 @@ EXPORT int lif_deliver_stamps() { return kStamps; }
       const float *I_ex, const float *I_in, const int *refrac,              \
       const float *ext_ex, const float *i_dc, float *Vo, float *Iexo,       \
       float *Iino, int *refo, unsigned char *spk, int *ids, int *overflow,  \
-      int t_prev
+      const int *t
 
 #define STEP_IO                                                             \
   StepIO io{spiked_prev, ring, V,    I_ex,    I_in,     refrac,  ext_ex,    \
             i_dc,        Vo,   Iexo, Iino,    refo,     spk,     ids,       \
             overflow,    nullptr, nullptr, nullptr, nullptr, nullptr,       \
-            t_prev,      0}
+            t,           -1,   0}
 
 #define PLASTIC_PARAMS                                                      \
   const float *x_pre, const float *x_post, float *x_pre_o, float *x_post_o, \
@@ -481,16 +488,17 @@ EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
 
 // K2: phases 1 and 2 alone, on the workspace that K3 and K4 use.  `k` is a
 // pack of the session's tables, sizes and workspace (its propagators and
-// pmask unused); delivers `spiked` at phase t into `ring`, writes the ids
+// pmask unused); delivers `spiked` at phase *t into `ring`, writes the ids
 // and the overflow.
 #define DELIVER_IO                                                          \
   StepIO io{spiked,  ring,    nullptr, nullptr, nullptr, nullptr, nullptr,  \
             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ids,      \
-            overflow, nullptr, nullptr, nullptr, nullptr, nullptr, t, 0}
+            overflow, nullptr, nullptr, nullptr, nullptr, nullptr, t, 0, 0}
 
 EXPORT int ell_deliver_launch(const StepConst* k,
                               const unsigned char* spiked, float* ring,
-                              int* ids, int* overflow, int t, void* stream) {
+                              int* ids, int* overflow, const int* t,
+                              void* stream) {
   DELIVER_IO;
   return launch<Form::kDeliver, false>(k, io, stream);
 }
@@ -498,7 +506,8 @@ EXPORT int ell_deliver_launch(const StepConst* k,
 EXPORT int ell_deliver_stamped_launch(const StepConst* k,
                                       const unsigned char* spiked,
                                       float* ring, int* ids, int* overflow,
-                                      int t, unsigned long long* stamps,
+                                      const int* t,
+                                      unsigned long long* stamps,
                                       void* stream) {
   DELIVER_IO;
   io.stamps = stamps;

@@ -8,6 +8,8 @@
 //
 //   upd[d, ch, n] = sum_p W[d, p, n]        (from zero, ascending p, f32)
 //   ring[(t + d) % D, ch, n] += upd[d, ch, n]
+// where t is the session's step counter, read from device memory (so that a
+// launch captured in a CUDA graph reads the counter its replay finds).
 //
 // The TPU kernel streams W[D, P, N] through VMEM in 512 x 512 tiles and,
 // through a scalar-prefetched block map, skips the tiles whose 512-wide
@@ -77,8 +79,8 @@ template <typename T>
 __global__ void __launch_bounds__(kBlock) rows_kernel(
     const int* __restrict__ ids, const int* __restrict__ count,
     const T* __restrict__ W, const float* __restrict__ scale, int p, int n,
-    int n_exc, float* __restrict__ ring, int t, int d_bins,
-    float* __restrict__ out) {
+    int n_exc, float* __restrict__ ring, const int* __restrict__ t,
+    int d_bins, float* __restrict__ out) {
   const int col = blockIdx.x * blockDim.x + threadIdx.x;
   if (col >= n) return;
   const int d = blockIdx.y;
@@ -101,7 +103,9 @@ __global__ void __launch_bounds__(kBlock) rows_kernel(
     return;
   }
   const size_t n_cols = static_cast<size_t>(n) + 1;
-  float* r = ring + static_cast<size_t>((t + d) % d_bins) * 2 * n_cols + col;
+  const int phase = (*t % d_bins + d_bins) % d_bins;   // t may be negative
+  float* r = ring + static_cast<size_t>((phase + d) % d_bins) * 2 * n_cols +
+             col;
   r[0] = __fadd_rn(r[0], acc_ex);
   r[n_cols] = __fadd_rn(r[n_cols], acc_in);
 }
@@ -116,13 +120,13 @@ EXPORT int spike_compact_tile() { return kBlock; }
 
 // spiked [p] bool; counts [ceil(p / tile)], ids [p] and count [1] int32
 // scratch; W [d_bins, p, n] float32 (w_bf16 == 0) or bfloat16; scale [p]
-// or null; ring [d_bins, 2, n + 1] float32 with 0 <= t < d_bins, or null
-// and out [d_bins, n] float32.
+// or null; ring [d_bins, 2, n + 1] float32 and t [1] int32 (the step
+// counter, on the card), or both null and out [d_bins, n] float32.
 EXPORT int gated_spike_launch(const unsigned char* spiked, int p,
                               int* counts, int* ids, int* count,
                               const void* W, int w_bf16, const float* scale,
                               int d_bins, int n, int n_exc, float* ring,
-                              int t, float* out, void* stream) {
+                              const int* t, float* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int tile = spike_compact_tile();
   const int n_tiles = std::max(1, (p + tile - 1) / tile);

@@ -8,7 +8,8 @@ the id compaction of ``repro/kernels/ops.py:ell_deliver``.  The step's
 spiking ids are compacted in order (the lowest ``budget`` ids ascending,
 then the sentinel row N), their ELL rows gathered, and every (target,
 weight, delay-bin) triple added into ``ring[(t + dbin) % D, ch, target]``
-with ``ch = sid >= n_exc`` (Dale's law).
+with ``ch = sid >= n_exc`` (Dale's law).  ``t`` is the step counter, a 0-d
+int32 tensor on the ring's device, which the kernel reads there.
 
 The ring is updated **in place** (the port keeps one 28 MB ring per
 session instead of a new one per step).  The plain version adds in the
@@ -32,7 +33,7 @@ from repro_torch.kernels.lif_deliver import (  # noqa: F401 (K2's names)
 PHASES = K3.PHASES[:5]
 
 
-def ell_deliver(ring, targets, weights, dbins, spiked, t: int, n_exc: int,
+def ell_deliver(ring, targets, weights, dbins, spiked, t, n_exc: int,
                 budget: int, *, stamps=None):
     """Returns ``(ring, ids, overflow)``; ``ring`` [D, 2, N+1] f32 is
     updated in place, tables are ``[N+1, K_pad]`` with sentinel row N.

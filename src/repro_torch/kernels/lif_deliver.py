@@ -3,11 +3,17 @@ and plastic, and their plain versions; and K2's, the same kernel's
 delivery-only form (its entry point is ``kernels/ell_deliver``).
 
 K3 replaces ``repro/kernels/lif_deliver.py:lif_deliver_pallas`` (static
-synapses).  One call delivers the previous step's spikes at ring phase
-``t_prev`` and integrates step ``t_prev + 1`` against slot
-``(t_prev + 1) % D``, which it then zeroes.  The plain version is exactly
-``deliver_phase(t_prev)`` followed by ``update_phase(t_prev + 1)``, so the
-rotated fused loop is bitwise the split loop on the CPU.
+synapses).  One call for step ``t`` delivers the previous step's spikes at
+ring phase ``t - 1`` and integrates step ``t`` against slot ``t % D``,
+which it then zeroes.  The plain version is exactly ``deliver_phase(t -
+1)`` followed by ``update_phase(t)``, so the rotated fused loop is bitwise
+the split loop on the CPU.
+
+``t`` is the session's step counter, a 0-d int32 tensor on the ring's
+device.  The kernels read it from device memory and never write it (the
+engine advances it with an op of its own), so a launch captured in a CUDA
+graph reads the counter of its replay; the plain versions compute the
+slot by index arithmetic on the tensor, with no read back to the host.
 
 K4 replaces ``lif_deliver_plastic_pallas``: K3 on the live plastic table,
 plus the pair-STDP depression of the delivered rows' plastic entries,
@@ -76,6 +82,18 @@ def compact_ids_plain(spiked: torch.Tensor, budget: int):
     return ids[:budget], overflow
 
 
+def step_counter(t, device) -> torch.Tensor:
+    """``t`` as the 0-d int32 tensor the plain versions take (a tensor
+    already so is returned as it is; a Python int, as tests give it, is
+    made one)."""
+    return torch.as_tensor(t, dtype=torch.int32, device=device)
+
+
+def slot_index(t: torch.Tensor, d_bins: int) -> torch.Tensor:
+    """``[t % D]`` as an int64 index tensor, on ``t``'s device."""
+    return torch.remainder(t, d_bins).view(1).to(torch.int64)
+
+
 def scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc):
     """Add the ELL rows of ``ids`` into ``ring`` [D, 2, n_cols] in place,
     at phase ``t``, in s-major / k-minor order."""
@@ -89,7 +107,7 @@ def scatter_rows_plain(ring, targets, weights, dbins, ids, t, n_exc):
     return ring
 
 
-def ell_deliver_plain(ring, targets, weights, dbins, spiked, t: int,
+def ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
                       n_exc: int, budget: int):
     """Returns ``(ring, ids, overflow)``; ``ring`` updated in place."""
     ids, overflow = compact_ids_plain(spiked, budget)
@@ -115,28 +133,29 @@ def _check_inputs(what, ring, targets, weights, dbins, spiked):
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
-                      I_in, refrac, ext_ex, i_dc, t_prev: int, *,
-                      n_exc: int, budget: int, prop: Propagators):
+                      I_in, refrac, ext_ex, i_dc, t, *, n_exc: int,
+                      budget: int, prop: Propagators):
     """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``.
 
     ``ring`` [D, 2, N+1] is updated in place; ``overflow`` is the budget
-    excess of ``spiked_prev`` (the delivered step).
+    excess of ``spiked_prev`` (the delivered step, ``t - 1``).
     """
     n = V.shape[0]
+    t = step_counter(t, ring.device)
     ring, ids, overflow = ell_deliver_plain(
-        ring, targets, weights, dbins, spiked_prev, t_prev, n_exc, budget)
-    slot = (t_prev + 1) % ring.shape[0]
-    arrivals = ring[slot]
+        ring, targets, weights, dbins, spiked_prev, t - 1, n_exc, budget)
+    slot = slot_index(t, ring.shape[0])
+    arrivals = ring.index_select(0, slot)[0]
     in_ex = arrivals[0, :n] + ext_ex
     V, I_ex, I_in, refrac, spiked = lif_update_plain(
         V, I_ex, I_in, refrac, in_ex, arrivals[1, :n], i_dc, prop=prop)
-    arrivals.zero_()
+    ring.index_fill_(0, slot, 0.0)        # consume the slot
     return ring, V, I_ex, I_in, refrac, spiked, ids, overflow
 
 
 def lif_deliver_plastic_plain(ring, targets, weights, dbins, pmask,
                               spiked_prev, V, I_ex, I_in, refrac, ext_ex,
-                              i_dc, x_pre, x_post, t_prev: int, *,
+                              i_dc, x_pre, x_post, t, *,
                               n_exc: int, budget: int, prop: Propagators,
                               coef: StdpCoef, trace: bool = True):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
@@ -145,7 +164,7 @@ def lif_deliver_plastic_plain(ring, targets, weights, dbins, pmask,
     (ring, V, I_ex, I_in, refrac, spiked, ids,
      overflow) = lif_deliver_plain(
         ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in, refrac,
-        ext_ex, i_dc, t_prev, n_exc=n_exc, budget=budget, prop=prop)
+        ext_ex, i_dc, t, n_exc=n_exc, budget=budget, prop=prop)
     depress_plain(weights, targets, pmask, x_post, ids, coef.dep)
     if trace:
         x_pre, x_post = traces_plain(x_pre, x_post, spiked_prev,
@@ -195,9 +214,9 @@ def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
         (targets.shape[1], n, n_exc, d_bins, budget, grid), prop, coef)
 
 
-_IO_ARGTYPES = [_P] + [_P] * 15 + [_I]          # pack, tensors, t_prev
+_IO_ARGTYPES = [_P] + [_P] * 15 + [_P]          # pack, tensors, t
 _PLASTIC_ARGTYPES = [_P] * 4 + [_I]             # traces in and out, trace
-_DELIVER_ARGTYPES = [_P] * 5 + [_I]             # pack, K2's tensors, t
+_DELIVER_ARGTYPES = [_P] * 5 + [_P]             # pack, K2's tensors, t
 
 
 def _lib():
@@ -293,10 +312,19 @@ def _check_stamps(what, stamps, ring, n_cols):
                          f"{list(want)} on {ring.device})")
 
 
+def _check_counter(what, t, ring):
+    if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+            and t.dim() == 0 and t.device == ring.device):
+        raise TypeError(f"{what}: the step counter t must be a 0-d int32 "
+                        f"tensor on {ring.device} (the kernel reads it "
+                        f"there), got {t!r}")
+
+
 def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
-          budget, prop, coef):
+          budget, prop, coef, t):
     """Checks the delivery's inputs; returns the session's cached pack."""
     _check_inputs(what, ring, targets, weights, dbins, spiked)
+    _check_counter(what, t, ring)
     k_pad = targets.shape[1]
     if budget * k_pad >= 2 ** 30:
         raise ValueError(f"{what}: budget x k_pad = {budget * k_pad} "
@@ -310,16 +338,16 @@ def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
 
 
 def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
-                 V, I_ex, I_in, refrac, ext_ex, i_dc, t_prev, n_exc, budget,
+                 V, I_ex, I_in, refrac, ext_ex, i_dc, t, n_exc, budget,
                  prop, coef):
     """Checks K3's or K4's inputs and allocates the outputs; returns them
     with the C arguments that K3 and K4 share: the session's cached pack,
-    then this step's tensors and ``t_prev``."""
+    then this step's tensors and the counter ``t``'s address."""
     _build.require_cuda(what, ring, V, I_ex, I_in, refrac, ext_ex, i_dc)
     if budget < 1:
         raise ValueError("the fused step needs spike_budget >= 1")
     pack = _pack(what, ring, targets, weights, dbins, pmask, spiked_prev,
-                 n_exc, budget, prop, coef)
+                 n_exc, budget, prop, coef, t)
     n = V.shape[0]
     dev = ring.device
     Vo, Iexo, Iino = (torch.empty_like(V) for _ in range(3))
@@ -330,19 +358,18 @@ def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
     c_args = (ctypes.addressof(pack),
               *(t.data_ptr() for t in (spiked_prev, ring, V, I_ex, I_in,
                                        refrac, ext_ex, i_dc, Vo, Iexo, Iino,
-                                       refo, spk, ids, overflow)),
-              int(t_prev))
+                                       refo, spk, ids, overflow, t)))
     return (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args
 
 
 def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
-                refrac, ext_ex, i_dc, t_prev: int, *, n_exc: int,
-                budget: int, prop: Propagators, stamps=None):
+                refrac, ext_ex, i_dc, t, *, n_exc: int, budget: int,
+                prop: Propagators, stamps=None):
     """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``;
     see :func:`lif_deliver_plain`.  ``stamps`` (a ``stamps_buffer``, on the
     card only) selects the stamped kernel, for a phase table."""
     args = (ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
-            refrac, ext_ex, i_dc, t_prev)
+            refrac, ext_ex, i_dc, t)
     if ring.device.type == "cpu":
         if stamps is not None:
             raise ValueError("lif_deliver: stamps are the kernel's, on the "
@@ -367,7 +394,7 @@ def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
 
 def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
                         V, I_ex, I_in, refrac, ext_ex, i_dc, x_pre, x_post,
-                        t_prev: int, *, n_exc: int, budget: int,
+                        t, *, n_exc: int, budget: int,
                         prop: Propagators, coef: StdpCoef,
                         trace: bool = True, stamps=None):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
@@ -380,7 +407,7 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
                              "kernel's, on the card")
         return lif_deliver_plastic_plain(
             ring, targets, weights, dbins, pmask, spiked_prev, V, I_ex,
-            I_in, refrac, ext_ex, i_dc, x_pre, x_post, t_prev, n_exc=n_exc,
+            I_in, refrac, ext_ex, i_dc, x_pre, x_post, t, n_exc=n_exc,
             budget=budget, prop=prop, coef=coef, trace=trace)
     _build.require_cuda("lif_deliver_plastic", ring, pmask, x_pre, x_post)
     if pmask.dtype != torch.bool or pmask.shape != targets.shape:
@@ -390,7 +417,7 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
         raise TypeError("lif_deliver_plastic: traces must be float32")
     (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _launch_args(
         "lif_deliver_plastic", ring, targets, weights, dbins, pmask,
-        spiked_prev, V, I_ex, I_in, refrac, ext_ex, i_dc, t_prev, n_exc,
+        spiked_prev, V, I_ex, I_in, refrac, ext_ex, i_dc, t, n_exc,
         budget, prop, coef)
     x_pre_o, x_post_o = ((torch.empty_like(x_pre), torch.empty_like(x_post))
                          if trace else (x_pre, x_post))
@@ -410,18 +437,18 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
             overflow)
 
 
-def deliver(ring, targets, weights, dbins, spiked, t: int, *, n_exc: int,
+def deliver(ring, targets, weights, dbins, spiked, t, *, n_exc: int,
             budget: int, stamps=None):
     """K2 on the card: the kernel's delivery-only form, one cooperative
     launch.  Returns ``(ring, ids, overflow)``; ``ring`` is updated in
     place (see ``ell_deliver.ell_deliver``).  ``stamps`` as for
     :func:`lif_deliver`; the launch stamps the first five of ``PHASES``."""
     pack = _pack("ell_deliver", ring, targets, weights, dbins, None, spiked,
-                 n_exc, budget, None, None)
+                 n_exc, budget, None, None, t)
     ids = torch.empty(budget, dtype=torch.int32, device=ring.device)
     overflow = torch.empty((), dtype=torch.int32, device=ring.device)
     c_args = (ctypes.addressof(pack), spiked.data_ptr(), ring.data_ptr(),
-              ids.data_ptr(), overflow.data_ptr(), int(t))
+              ids.data_ptr(), overflow.data_ptr(), t.data_ptr())
     lib = _lib()
     stream = _build.stream_of(ring)
     if stamps is None:

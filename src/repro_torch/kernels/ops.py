@@ -3,7 +3,8 @@
 ``:134``).
 
 Each takes the engine's types (``NeuronState``, ``EventTables``) and runs
-its kernel on CUDA tensors or its plain version on CPU tensors.
+its kernel on CUDA tensors or its plain version on CPU tensors.  The step
+counter ``t`` is the engine's 0-d int32 tensor, on the tensors' device.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def gated_spike_matvec(s: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     return _dense.gated_spike_matvec(s, W)
 
 
-def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t: int,
+def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t,
                 n_exc: int, spike_budget: int):
     """Sparse-ELL delivery (K2), in place.  Returns ``(ring, overflow)``,
     like ``DeliveryStrategy.deliver``."""
@@ -42,7 +43,7 @@ def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t: int,
     return ring, overflow
 
 
-def lif_deliver(state: NeuronState, ring: torch.Tensor, t: int,
+def lif_deliver(state: NeuronState, ring: torch.Tensor, t,
                 spiked_prev: torch.Tensor, tables, prop: Propagators,
                 ext_ex: torch.Tensor, i_dc: torch.Tensor, *, n_exc: int,
                 spike_budget: int):
@@ -53,12 +54,11 @@ def lif_deliver(state: NeuronState, ring: torch.Tensor, t: int,
      overflow) = _fused.lif_deliver(
         ring, tables.targets, tables.weights, tables.dbins, spiked_prev,
         state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
-        i_dc.contiguous(), t - 1, n_exc=n_exc, budget=spike_budget,
-        prop=prop)
+        i_dc.contiguous(), t, n_exc=n_exc, budget=spike_budget, prop=prop)
     return NeuronState(V, I_ex, I_in, refrac), ring, spiked, overflow
 
 
-def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t: int,
+def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t,
                         spiked_prev: torch.Tensor, tables, pmask, ps,
                         prop: Propagators, ext_ex: torch.Tensor,
                         i_dc: torch.Tensor, *, n_exc: int, spike_budget: int,
@@ -73,7 +73,7 @@ def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t: int,
      overflow) = _fused.lif_deliver_plastic(
         ring, tables.targets, ps.weights, tables.dbins, pmask, spiked_prev,
         state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
-        i_dc.contiguous(), ps.x_pre, ps.x_post, t - 1, n_exc=n_exc,
+        i_dc.contiguous(), ps.x_pre, ps.x_post, t, n_exc=n_exc,
         budget=spike_budget, prop=prop, coef=coef, trace=trace)
     return (NeuronState(V, I_ex, I_in, refrac), ring, spiked,
             ps._replace(weights=w, x_pre=x_pre, x_post=x_post), ids,

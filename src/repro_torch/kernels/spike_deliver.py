@@ -8,7 +8,9 @@ deliver_dense`` around it.  The step's spiking ids are compacted in order
 (``p < n_exc`` excitatory, Dale's law) ``upd[d, ch, n] = Σ_p W[d, p, n]``
 is summed from zero in ascending ``p`` in float32 (a bfloat16 ``W`` is
 widened as it is read); bin ``d`` is added into ``ring[(t + d) % D, ch,
-n]``.  The ring is updated **in place**.
+n]``.  The ring is updated **in place**.  ``t`` is the step counter, a 0-d
+int32 tensor on the ring's device: the kernel reads it there, and the plain
+version shifts the bins by index arithmetic on it (no read to the host).
 
 The plain version gathers the spiking rows and adds them one after the
 other in the same order, so the kernel equals it bit for bit.  The JAX
@@ -52,15 +54,25 @@ def gated_spike_matvec_plain(s: torch.Tensor, W: torch.Tensor
     return _ordered_sum(W, ids, s[ids])
 
 
+def rolled(upd: torch.Tensor, t) -> torch.Tensor:
+    """``torch.roll(upd, t, dims=0)`` for a step counter ``t`` that is a
+    0-d tensor (or an int): row ``(j + t) % D`` of the result is row ``j``
+    of ``upd``, by a gather with no read of ``t`` to the host."""
+    d = upd.shape[0]
+    t = torch.as_tensor(t, dtype=torch.int64, device=upd.device)
+    src = torch.remainder(torch.arange(d, device=upd.device) - t, d)
+    return upd.index_select(0, src)
+
+
 def dense_deliver_plain(ring: torch.Tensor, W: torch.Tensor,
-                        spiked: torch.Tensor, t: int, n_exc: int
+                        spiked: torch.Tensor, t, n_exc: int
                         ) -> torch.Tensor:
     """Adds the step's dense update into ``ring`` [D, 2, N+1] in place."""
     n = spiked.shape[0]
     ids = torch.nonzero(spiked).view(-1)
     upd = torch.stack([_ordered_sum(W, ids[ids < n_exc]),
                        _ordered_sum(W, ids[ids >= n_exc])], dim=1)
-    ring[:, :, :n] += torch.roll(upd, shifts=int(t), dims=0)
+    ring[:, :, :n] += rolled(upd, t)
     return ring
 
 
@@ -71,14 +83,15 @@ def _lib():
         lib.spike_compact_tile.argtypes = []
         lib.gated_spike_launch.restype = ctypes.c_int
         lib.gated_spike_launch.argtypes = (
-            [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _I, _P, _P])
+            [_P, _I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _P])
         lib._typed = True
     return lib
 
 
-def _launch(spiked, W, scale, n_exc: int, ring=None, t: int = 0,
+def _launch(spiked, W, scale, n_exc: int, ring=None, t=None,
             out=None) -> None:
-    """Compaction and rows kernel; ``ring`` (at phase ``t``) or ``out``."""
+    """Compaction and rows kernel; ``ring`` (at phase ``t``, the counter
+    tensor) or ``out``."""
     d_bins, p, n = W.shape
     lib = _lib()
     tile = lib.spike_compact_tile()
@@ -92,7 +105,7 @@ def _launch(spiked, W, scale, n_exc: int, ring=None, t: int = 0,
         _build.ptr(spiked), _I(p), _build.ptr(counts), _build.ptr(ids),
         _build.ptr(count), _build.ptr(W),
         _I(1 if W.dtype == torch.bfloat16 else 0), opt(scale), _I(d_bins),
-        _I(n), _I(n_exc), opt(ring), _I(int(t) % d_bins), opt(out),
+        _I(n), _I(n_exc), opt(ring), opt(t), opt(out),
         _build.stream_of(W))
     _build.launches["gated_spike_matvec"] += 1
     _build.check(lib, code, "gated_spike_matvec")
@@ -108,13 +121,17 @@ def _check_table(what: str, W: torch.Tensor) -> None:
 
 
 def dense_deliver(ring: torch.Tensor, W: torch.Tensor, spiked: torch.Tensor,
-                  t: int, n_exc: int) -> torch.Tensor:
+                  t, n_exc: int) -> torch.Tensor:
     """Returns ``ring`` [D, 2, N+1] f32, updated in place; ``W`` is the
     bin-major table [D, N, N], ``spiked`` [N] bool."""
     if ring.device.type == "cpu":
         return dense_deliver_plain(ring, W, spiked, t, n_exc)
     _build.require_cuda("dense_deliver", ring, W, spiked)
     _check_table("dense_deliver", W)
+    if not (isinstance(t, torch.Tensor) and t.dtype == torch.int32
+            and t.dim() == 0 and t.device == ring.device):
+        raise TypeError(f"dense_deliver: the step counter t must be a 0-d "
+                        f"int32 tensor on {ring.device}, got {t!r}")
     n = spiked.shape[0]
     if ring.dtype != torch.float32 or spiked.dtype != torch.bool:
         raise TypeError("dense_deliver: ring must be float32 and spiked "

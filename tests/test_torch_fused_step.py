@@ -138,7 +138,8 @@ def _assert_lif_deliver_equals_jax(net, x, t):
     tb = pnet.tables
     out = lif_deliver(p["ring"], tb.targets, tb.weights, tb.dbins,
                       p["spiked_prev"], p["V"], p["I_ex"], p["I_in"],
-                      p["refrac"], ext_ex, pnet.i_dc, t - 1, n_exc=c.n_exc,
+                      p["refrac"], ext_ex, pnet.i_dc,
+                      torch.tensor(t, dtype=torch.int32), n_exc=c.n_exc,
                       budget=BUDGET, prop=Propagators.make(NeuronParams(),
                                                            0.1))
     ring, V, I_ex, I_in, refrac, spiked, ids, ovf = out
@@ -183,30 +184,34 @@ def test_fused_update_phase_bitwise_vs_jax_split(net):
         channel="spikes", fn=lambda gen, t_step, state: (None, counts)),),
         bases=(None,))
     st = SimState(NeuronState(p["V"], p["I_ex"], p["I_in"], p["refrac"]),
-                  p["ring"], t, None, torch.zeros((), dtype=torch.int32))
+                  p["ring"], torch.tensor(t, dtype=torch.int32), None,
+                  torch.zeros((), dtype=torch.int32))
     st, spiked = fused_update_phase(
         st, pnet, Propagators.make(NeuronParams(), 0.1), pcfg, c.w_ext,
         c.n_total, c.n_exc, p["spiked_prev"], replay)
     got = [a.numpy() for a in (st.ring, *st.neuron, spiked, st.overflow)]
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
-    assert st.t == t + 1
+    assert st.t.dtype == torch.int32 and int(st.t) == t + 1
 
 
 def test_ops_lif_deliver_signature(net):
-    """``kernels.ops.lif_deliver`` takes the reference's arguments (``t``,
-    not ``t - 1``) and returns ``(neuron', ring, spiked, overflow)``."""
+    """``kernels.ops.lif_deliver`` takes the reference's arguments (the
+    step counter ``t``, the step it integrates, as the kernel-level wrapper
+    takes it too: both deliver at ``t - 1``) and returns ``(neuron', ring,
+    spiked, overflow)``."""
     c_jax, jcfg, jnet, c, pcfg, pnet = net
     x = _state(c, seed=5, n_spikes=10)
     p, ext_ex = _port_inputs(c, x)
     prop = Propagators.make(NeuronParams(), 0.1)
+    t = torch.tensor(41, dtype=torch.int32)
     a = kops.lif_deliver(
         NeuronState(p["V"], p["I_ex"], p["I_in"], p["refrac"]),
-        p["ring"].clone(), 41, p["spiked_prev"], pnet.tables, prop, ext_ex,
+        p["ring"].clone(), t, p["spiked_prev"], pnet.tables, prop, ext_ex,
         pnet.i_dc, n_exc=c.n_exc, spike_budget=BUDGET)
     b = lif_deliver(p["ring"].clone(), *pnet.tables, p["spiked_prev"],
                     p["V"], p["I_ex"], p["I_in"], p["refrac"], ext_ex,
-                    pnet.i_dc, 40, n_exc=c.n_exc, budget=BUDGET, prop=prop)
+                    pnet.i_dc, t, n_exc=c.n_exc, budget=BUDGET, prop=prop)
     for u, v in zip((*a[0], a[1], a[2], a[3]),
                     (b[1], b[2], b[3], b[4], b[0], b[5], b[7])):
         assert torch.equal(u, v)

@@ -164,7 +164,8 @@ def test_stamps_need_the_card(nets):
     with pytest.raises(ValueError, match="stamps"):
         K3.lif_deliver(torch.zeros(c.d_max_bins, 2, n + 1), tb.targets,
                        tb.weights, tb.dbins, torch.zeros(n, dtype=torch.bool),
-                       z, z, z, torch.zeros(n, dtype=torch.int32), z, z, 7,
+                       z, z, z, torch.zeros(n, dtype=torch.int32), z, z,
+                       torch.tensor(7, dtype=torch.int32),
                        n_exc=c.n_exc, budget=128,
                        prop=Propagators.make(NeuronParams(), 0.1),
                        stamps=torch.zeros(7, 8, dtype=torch.int64))

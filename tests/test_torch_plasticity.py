@@ -337,8 +337,8 @@ def _assert_k4_equals_jax(net, seed, jps, ps, spiked_prev):
         torch.from_numpy(ring), tb.targets, ps.weights, tb.dbins,
         net["ptab"].plastic_out, torch.from_numpy(spiked_prev),
         *(torch.from_numpy(x[k]) for k in ("V", "I_ex", "I_in", "refrac")),
-        ext_ex, torch.as_tensor(c.i_dc), ps.x_pre, ps.x_post, t - 1,
-        n_exc=c.n_exc, budget=BUDGET, prop=Propagators.make(NeuronParams(),
+        ext_ex, torch.as_tensor(c.i_dc), ps.x_pre, ps.x_post,
+        torch.tensor(t, dtype=torch.int32), n_exc=c.n_exc, budget=BUDGET, prop=Propagators.make(NeuronParams(),
                                                             DT),
         coef=net["coef"])
     assert w is ps.weights
@@ -364,7 +364,8 @@ def test_first_rotated_step_keeps_traces(net):
     out = kops.lif_deliver_plastic(
         NeuronState(torch.full((n,), -60.0), torch.zeros(n),
                          torch.zeros(n), torch.zeros(n, dtype=torch.int32)),
-        torch.zeros((c.d_max_bins, 2, n + 1)), 7,
+        torch.zeros((c.d_max_bins, 2, n + 1)),
+        torch.tensor(7, dtype=torch.int32),
         torch.zeros(n, dtype=torch.bool), net["tables"],
         net["ptab"].plastic_out, ps, Propagators.make(NeuronParams(), DT),
         torch.zeros(n), torch.as_tensor(c.i_dc), n_exc=c.n_exc,
@@ -491,7 +492,7 @@ def test_plastic_simulator_bitwise_vs_jax_eager(plastic_reference, mode):
                            getattr(tables, name)), name
     sim.state = (state, ps)
     w_start = ps.weights.clone()
-    sim.warmup()                                  # leaves the state alone
+    sim.warmup(RUN_MS)                            # leaves the state alone
     assert torch.equal(sim.state[1].weights, w_start)
     res = sim.run(RUN_MS)
     assert res.n_steps == N_RUN and res.overflow == 0

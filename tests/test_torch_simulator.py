@@ -133,7 +133,7 @@ def test_simulator_bitwise_vs_jax_eager(reference, mode):
                            getattr(net.tables, name)), name
     assert torch.equal(sim.backend.net.pop_of, net.pop_of)
     sim.state = state
-    sim.warmup()                                  # leaves the state alone
+    sim.warmup(RUN_MS)                            # leaves the state alone
     res = sim.run(RUN_MS)
     assert res.n_steps == N_RUN and res.overflow == 0
     np.testing.assert_array_equal(res["spikes"], ref["spikes"])

@@ -119,17 +119,21 @@ def main() -> None:
         spks.append(on(s))
     prop = Propagators.make(NeuronParams(), 0.1)
     coef = StdpCoef(1.05, 0.88, 0.995, 0.995, 263.4)
+    # the step counter: a 0-d int32 tensor on the card in a tree whose
+    # kernels read it there (``lif_deliver.step_counter``), an int before
+    t_step = (torch.tensor(1234, dtype=torch.int32, device=dev)
+              if hasattr(K3, "step_counter") else 1234)
     # (launch, stamps buffer or None, phase names)
     k3_stamps = lambda: K3.stamps_buffer(dev, n + 1)
     launches = {}
     if "k3" in args.kernel:
         launches["K3"] = (lambda i, **kw: K3.lif_deliver(
-            ring, targets, weights, dbins, spks[i % 64], *state, 1234,
+            ring, targets, weights, dbins, spks[i % 64], *state, t_step,
             n_exc=n_exc, budget=256, prop=prop, **kw), k3_stamps, K3.PHASES)
     if "k4" in args.kernel:
         launches["K4"] = (lambda i, **kw: K3.lif_deliver_plastic(
             ring, targets, weights, dbins, pmask, spks[i % 64], *state,
-            x_pre, x_post, 1234, n_exc=n_exc, budget=256, prop=prop,
+            x_pre, x_post, t_step, n_exc=n_exc, budget=256, prop=prop,
             coef=coef, **kw), k3_stamps, K3.PHASES)
     bounds = {}
     if "k2" in args.kernel:
@@ -140,7 +144,7 @@ def main() -> None:
                              ENTRY_OPS * n_entries)
         stamped = hasattr(K2, "PHASES")
         launches["K2"] = (lambda i, **kw: K2.ell_deliver(
-            ring, targets, weights, dbins, spks[i % 64], 1234, n_exc, 256,
+            ring, targets, weights, dbins, spks[i % 64], t_step, n_exc, 256,
             **kw), k3_stamps if stamped else None,
             K2.PHASES if stamped else None)
     if "stdp" in args.kernel:
