@@ -85,7 +85,42 @@ Phases, each on its own line; any failed check exits non-zero:
    within 1e-5) and for ``stdp_update``'s two per-step forms
    (``[stdp_phases]`` over ``stdp.PHASES``, ``[stdp_graph]``: weights and
    traces bitwise);
-9. the dense strategy, once the full-scale sessions are freed:
+9. the session API on the full-scale connectome, each sub-phase's
+   launches counted from 0 (the kernels of its path must have launched):
+   ``[shared_backend]``, two static sessions on one ``FusedBackend``
+   (no presim), run in turns (a, b, a, b, 150 steps each), against one
+   lone session that runs a's seed and then b's: the second session's
+   construction builds and captures nothing, and neither do its runs;
+   spikes, population counts, ``t``, overflow, refrac and the generator
+   exact, V, the currents and the ring within rtol = atol = 1e-5 (K3's
+   float atomics); ``[experiment_full]``, ``Experiment(model=
+   MicrocircuitConfig(scale, strategy="ell"), validate=True,
+   duration_ms=1000)`` with the built connectome (warmup first, 100
+   sampled neurons a population), the table printed with the RTF and the
+   graph cache's counters, and its witness: the same experiment on the
+   instrumented backend's eager loop with ``kernels="reference"`` (plain
+   PyTorch, no kernel launched, no graph).  Every check of the report must
+   pass, or else fail on the witness too, with values within
+   ``WITNESS_RTOL`` of each other (at natural density the synchrony
+   statistic lies above the reference's band on both: 13.6-17.1 at full
+   scale against [0, 8], ``tools/synchrony_scale.py``);
+   ``[run_batch]``, 3 trials of 200 ms, each with its presim, over the
+   experiment's backend (shared), after ``warmup_batch``: each trial's
+   RTF and rates (in band), trial 0's spikes and population counts over
+   its first 300 steps exactly a fresh session's with its seed, the
+   session's own state bitwise unchanged, no capture in the batch (and
+   none after trial 0 in any batch: ``run_batch`` raises);
+   ``[checkpoint]`` (static) and ``[checkpoint_plastic]`` (pair STDP):
+   100 ms presim, 100 ms, ``save``
+   into a temporary directory (removed after), 30 ms (A), ``restore``,
+   30 ms (B): no capture, A and B exact (the weights and traces too) but
+   V, the currents and the ring (within 1e-5), the checkpoint's bytes, the
+   save and restore seconds; ``torch.cuda.memory_allocated`` before and
+   after a ``suspend``, then ``resume`` and the next 30 ms held to an
+   untouched twin's; ``[scenarios]``, each of ``examples/scenarios/*.json``
+   at its own scale and duration through ``Experiment.run``: every one
+   that validates must pass;
+10. the dense strategy, once the full-scale sessions are freed:
    (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
    reference path (two ``torch.matmul`` GEMVs on the source-major table)
    over 1,000 steps: the rasters equal, or the JAX package's own
@@ -106,7 +141,7 @@ Phases, each on its own line; any failed check exits non-zero:
    300 steps from one state, every tensor bitwise (K1 and K5 add in a
    fixed order; the eager session is built once the graphed one is
    freed, two tables not fitting the card), and ``[dense_path_eager]``;
-10. K6 ``flash_attention`` and the LM layers at Qwen3-32B widths
+11. K6 ``flash_attention`` and the LM layers at Qwen3-32B widths
    (``d_model`` 5120, 64 query and 8 KV heads of 128, ``d_ff`` 25600,
    qk-norm, rope theta 1e6; the Hugging Face model card Qwen/Qwen3-32B),
    once the dense session is freed, with random weights from ``--seed``:
@@ -180,17 +215,22 @@ ENTRY_OPS = 3
 FULL_MEAN_RATES = [0.971, 4.746, 8.142, 0.991, 2.868, 5.396, 9.078, 7.523]
 RATE_REL_TOL, RATE_ABS_TOL = 0.5, 1.0      # validate/reference.py:60-78
 RING_RTOL = RING_ATOL = 1e-5
+#: a check that [experiment_full] fails is held to the plain witness's
+#: value within this relative tolerance: at full scale the synchrony
+#: statistic spreads over 13.6-17.1 across seeds 55-57, so two independent
+#: runs differ by up to 26 % (tools/synchrony_scale.py, PERF.md section 6)
+WITNESS_RTOL = 0.3
 #: Qwen3-32B's attention and MLP widths (the Hugging Face model card
 #: Qwen/Qwen3-32B: rms_norm_eps 1e-6, rope_theta 1e6)
 QWEN3_32B = dict(name="qwen3-32b", n_layers=64, d_model=5120, n_heads=64,
                  n_kv_heads=8, d_ff=25600, head_dim=128, qk_norm=True,
                  rope_theta=1e6, norm_eps=1e-6)
-#: phase 10: (T, S, causal, q_offset) of K6 against its plain version (the
+#: phase 11: (T, S, causal, q_offset) of K6 against its plain version (the
 #: last is a 512-token prefill into a 4096-slot cache at index 3584); the
 #: layer's and the timing's T; the long call's T = S and the rows it checks
 ATTN_SHAPES = ((4096, 4096, True, 0), (4000, 4000, True, 0),
                (4096, 1500, False, 0), (512, 4096, True, 3584))
-#: phase 10 (a) also at tests/test_kernels.py's flash-attention shapes,
+#: phase 11 (a) also at tests/test_kernels.py's flash-attention shapes,
 #: (B, Hq, Hkv, T, S, D, causal): D = 32 and 64, B = 2, ragged T, cross
 ATTN_TEST_SHAPES = ((1, 2, 2, 64, 64, 32, True), (2, 4, 2, 128, 128, 64, True),
                     (1, 8, 1, 100, 100, 64, True),
@@ -389,6 +429,36 @@ def clone_state(state):
 ATOMIC_FED = ("V", "I_ex", "I_in", "ring")
 
 
+def compare_states(phase: str, a, b, atomics: bool = True) -> dict:
+    """Two sessions' states held to each other: every tensor exact, but
+    with ``atomics`` (a path through K2, K3 or K4, whose float atomics add
+    in no fixed order) those ``ATOMIC_FED`` within RING_RTOL / ATOL;
+    returns the elements whose bits differ, by name."""
+    import torch
+    bits = {}
+    sa, sb = state_tensors(a), state_tensors(b)
+    for name, x in sa.items():
+        y = sb[name]
+        bits[name] = int((x.view(torch.int32) != y.view(torch.int32)).sum()) \
+            if x.dtype == torch.float32 else int((x != y).sum())
+        if atomics and name in ATOMIC_FED:
+            if not torch.allclose(x, y, rtol=RING_RTOL, atol=RING_ATOL):
+                fail(f"{phase}: {name} beyond rtol = atol = {RING_RTOL}: "
+                     f"max |diff| {float((x - y).abs().max())}")
+        elif bits[name]:
+            fail(f"{phase}: {name} differs in {bits[name]} elements")
+    return bits
+
+
+def same_runs(phase: str, a, b, steps=None) -> None:
+    """Two runs' per-step probes exact (over their first ``steps``)."""
+    import numpy as np
+    for name in a.data:
+        if not np.array_equal(a[name][:steps], b[name][:steps]):
+            fail(f"{phase}: {name} differs")
+
+
+
 def hold_to_eager(phase: str, graphed, eager, t_ms: float,
                   atomics: bool, probes=("pop_counts", "spikes")) -> dict:
     """``[graph_*]``: the graphed session (``FusedBackend``, CUDA graphs)
@@ -400,7 +470,6 @@ def hold_to_eager(phase: str, graphed, eager, t_ms: float,
     the ring too, unless ``atomics`` (a path through K2, K3 or K4, whose
     float atomics add in no fixed order): then within RING_RTOL / ATOL,
     and the elements whose bits differ are counted."""
-    import numpy as np
     import torch
     eager.state = clone_state(graphed.state)
     for s in (graphed, eager):
@@ -412,29 +481,13 @@ def hold_to_eager(phase: str, graphed, eager, t_ms: float,
         fail(f"{phase}: {res_g.n_steps} steps, fewer than 200")
     out = {"steps": res_g.n_steps, "spikes": int(res_g["spikes"].sum()),
            "graphs_captured": graphed.backend.graphs.misses}
-    for name in res_g.data:
-        if not np.array_equal(res_g[name], res_e[name]):
-            fail(f"{phase}: the graphed loop's {name} differs from the "
-                 f"eager loop's")
+    same_runs(f"{phase} (graphed against eager)", res_g, res_e)
     if not torch.equal(graphed._generator.get_state(),
                        eager._generator.get_state()):
         fail(f"{phase}: the generators' states differ after the run")
-    bits = {}
-    a, b = state_tensors(graphed.state), state_tensors(eager.state)
-    for name in a:
-        x, y = a[name], b[name]
-        differ = int((x.view(torch.int32) != y.view(torch.int32)).sum()) \
-            if x.dtype == torch.float32 else int((x != y).sum())
-        bits[name] = differ
-        if atomics and name in ATOMIC_FED:
-            if not torch.allclose(x, y, rtol=RING_RTOL, atol=RING_ATOL):
-                fail(f"{phase}: {name} beyond rtol = atol = {RING_RTOL} of "
-                     f"the eager loop's: max |diff| "
-                     f"{float((x - y).abs().max())}")
-        elif differ:
-            fail(f"{phase}: {name} differs from the eager loop's in "
-                 f"{differ} elements")
-    out.update(exact=json.dumps(sorted(n for n in a if not atomics
+    bits = compare_states(f"{phase} (graphed against eager)", graphed.state,
+                          eager.state, atomics)
+    out.update(exact=json.dumps(sorted(n for n in bits if not atomics
                                        or n not in ATOMIC_FED)
                                 + sorted(res_g.data) + ["generator"]),
                elements_with_other_bits=json.dumps(bits),
@@ -550,7 +603,7 @@ def sm90_build(_build) -> None:
 
 
 def attention_phase(seed: int) -> dict:
-    """Phase 10 (the module's docstring).  Returns the attention path's
+    """Phase 11 (the module's docstring).  Returns the attention path's
     launch counts, K6's largest error against its plain version, and K6's
     times, bytes and operations for the ``kernels`` line."""
     import unittest.mock
@@ -825,6 +878,286 @@ def attention_phase(seed: int) -> dict:
                 max_over_bar=max_over_bar, k6=k6, k6_f32=k6_f32,
                 k6_plain=k6_plain, k6_lib=k6_lib, k6_bytes=k6_bytes,
                 k6_ops=k6_ops, ms_32k=ms_32k)
+
+
+def launched(phase: str, want) -> dict:
+    """The launch counts since the last reset; every kernel of ``want``
+    must have launched."""
+    from repro_torch.kernels import _build
+    counts = dict(_build.launches)
+    for name in want:
+        if not counts[name]:
+            fail(f"{phase}: {name} was not launched")
+    return counts
+
+
+def session_api_phase(c, args, card: str, dev) -> dict:
+    """Phase 9 (the module's docstring), on the full-scale connectome
+    ``c``.  Returns each sub-phase's launch counts."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment, FusedBackend, Simulator
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.kernels import _build
+
+    cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                             seed=args.seed)
+    runs = {}
+
+    # [shared_backend]: sessions a and b on one backend, in turns, against
+    # a lone session that runs a's seed and then b's (no presim: each
+    # session runs 300 steps, the [graph_static] horizon)
+    cfg0 = dataclasses.replace(cfg, t_presim=0.0)
+    probes = ("pop_counts", "spikes")
+    shared = FusedBackend()
+    _build.reset_launches()
+    a = Simulator(cfg0, connectome=c, backend=shared, device=dev,
+                  probes=probes, key=args.seed)
+    a.warmup(15.0)
+    misses = shared.graphs.misses
+    tables = shared.net
+    b = Simulator(cfg0, connectome=c, backend=shared, device=dev,
+                  probes=probes, key=args.seed + 1)
+    if shared.net is not tables or shared.graphs.misses != misses:
+        fail("shared_backend: the second session rebuilt or captured")
+    got = {"a": [], "b": []}
+    for who, sess in (("a", a), ("b", b), ("a", a), ("b", b)):
+        got[who].append(sess.run(15.0))
+    runs["shared_backend"] = launched("shared_backend", ("lif_deliver",))
+    if shared.graphs.misses != misses:
+        fail(f"shared_backend: session b's runs captured "
+             f"({shared.graphs.misses} misses, {misses} before)")
+    lone = Simulator(cfg0, connectome=c, device=dev, probes=probes,
+                     key=args.seed)
+    bits = {}
+    for who, sess, key in (("a", a, args.seed), ("b", b, args.seed + 1)):
+        lone.reset(key)
+        for i in range(2):
+            same_runs(f"shared_backend ({who}, run {i})", got[who][i],
+                      lone.run(15.0))
+        bits[who] = compare_states(f"shared_backend ({who})", sess.state,
+                                   lone.state)
+        if not torch.equal(sess._generator.get_state(),
+                           lone._generator.get_state()):
+            fail(f"shared_backend: session {who}'s generator differs")
+    say("shared_backend", sessions=2, steps_each=2 * got["a"][0].n_steps,
+        spikes=json.dumps({w: int(sum(r["spikes"].sum() for r in got[w]))
+                           for w in got}),
+        captures_by_second_session=0, graphs=json.dumps(shared.graphs.stats()),
+        exact=json.dumps(["spikes", "pop_counts", "t", "overflow", "refrac",
+                          "generator"]),
+        elements_with_other_bits=json.dumps(bits))
+    del a, b, lone, got, shared, tables
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [experiment_full]: a validated second of the full-scale model, and
+    # its witness: the same experiment (network, seed, sample) on the
+    # instrumented backend's eager loop with the plain PyTorch versions
+    # (no kernel, no graph)
+    backend = FusedBackend()
+    exp = Experiment(model=cfg, validate=True, duration_ms=1000.0,
+                     name="experiment_full")
+    _build.reset_launches()
+    result = exp.run(connectome=c, warmup=True, device=dev, backend=backend)
+    runs["experiment_full"] = launched("experiment_full", ("lif_deliver",))
+    for line in result.report.table().splitlines():
+        print(f"[experiment_full_report] {line}", flush=True)
+    res = result.trials[0]
+    plain = Experiment(model=dataclasses.replace(cfg, kernels="reference"),
+                       validate=True, duration_ms=1000.0,
+                       backend="instrumented", name="experiment_full_plain")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    witness = plain.run(connectome=c, device=dev)
+    plain_s = time.perf_counter() - t0
+    if any(_build.launches.values()):
+        fail(f"experiment_full: the plain witness launched kernels "
+             f"{dict(_build.launches)}")
+    for line in witness.report.table().splitlines():
+        print(f"[experiment_full_plain_report] {line}", flush=True)
+    # a check that the kernel path fails, the plain witness fails too, and
+    # the two values agree within WITNESS_RTOL (the statistics' spread over
+    # seeds at full scale, tools/synchrony_scale.py)
+    held, wrong = {}, []
+    for ck, wk in zip(result.report.checks, witness.report.checks,
+                      strict=True):
+        if (ck.metric, ck.population) != (wk.metric, wk.population):
+            fail(f"experiment_full: the reports' checks differ "
+                 f"({ck.metric}/{ck.population}, "
+                 f"{wk.metric}/{wk.population})")
+        if ck.status == "pass":
+            continue
+        name = f"{ck.metric}/{ck.population}"
+        held[name] = [ck.value, wk.value, wk.status]
+        if wk.status == "pass" \
+                or abs(ck.value - wk.value) > WITNESS_RTOL * abs(wk.value):
+            wrong.append(name)
+    wres = witness.trials[0]
+    say("experiment_full", t_model_ms=res.t_model_ms, wall_s=res.wall_s,
+        rtf=res.rtf, ms_per_step=res.wall_s / res.n_steps * 1e3,
+        overflow=res.overflow, passed=result.report.passed,
+        statuses=json.dumps(result.report.by_population()),
+        plain_passed=witness.report.passed, plain_overflow=wres.overflow,
+        plain_ms_per_step=wres.wall_s / wres.n_steps * 1e3,
+        plain_s=plain_s, witness_rtol=WITNESS_RTOL,
+        pop_counts_equal_to_plain=bool(np.array_equal(res["pop_counts"],
+                                                      wres["pop_counts"])),
+        held_to_witness=json.dumps(held),
+        graphs=json.dumps(backend.graphs.stats()), card=json.dumps(card))
+    if wrong or res.overflow or wres.overflow:
+        fail(f"experiment_full: checks failed and not held by the plain "
+             f"witness {wrong}, overflow {res.overflow} (plain "
+             f"{wres.overflow})")
+    del exp, result, res, plain, witness, wres
+
+    # [run_batch]: 3 trials of 200 ms, each with its presim, over the
+    # backend the experiment built (the same network and config: shared)
+    sim = Simulator(cfg, connectome=c, backend=backend, device=dev,
+                    probes=probes)
+    before = clone_state(sim.state)
+    gen_before = sim._generator.get_state()
+    misses_warmup = backend.graphs.misses
+    sim.warmup_batch(200.0, 3)          # the trials' graphs, before timing
+    misses = backend.graphs.misses
+    _build.reset_launches()
+    batch = sim.run_batch(200.0, n_trials=3)
+    runs["run_batch"] = launched("run_batch", ("lif_deliver",))
+    misses_after = backend.graphs.misses
+    for i, (seed, tr) in enumerate(zip(batch.seeds, batch.trials)):
+        rates = tr.summary()["rates_hz"]
+        say("run_batch_trial", trial=i, seed=seed, rtf=tr.rtf,
+            ms_per_step=tr.wall_s / tr.n_steps * 1e3, overflow=tr.overflow,
+            rates_hz=json.dumps([round(float(r), 3) for r in rates]))
+        check_rates(rates, f"run_batch trial {i}")
+        if tr.overflow:
+            fail(f"run_batch: trial {i} overflowed {tr.overflow}")
+    twin = Simulator(cfg, connectome=c, backend=backend, device=dev,
+                     probes=probes, key=batch.seeds[0])
+    twin_res = twin.run(30.0)
+    same_runs("run_batch (trial 0 against reset(seed0); run)",
+              batch.trials[0], twin_res, steps=twin_res.n_steps)
+    untouched = all(bitwise(x, y) for x, y in zip(
+        state_tensors(sim.state).values(), state_tensors(before).values()))
+    if not untouched or not torch.equal(gen_before,
+                                        sim._generator.get_state()):
+        fail("run_batch changed the session's own state")
+    if misses_after != misses:
+        fail(f"run_batch captured after warmup_batch ({misses} misses "
+             f"before, {misses_after} after)")
+    say("run_batch", trials=len(batch), seeds=json.dumps(batch.seeds),
+        t_ms=200.0, rtf_trials=json.dumps(batch.rtf_trials.tolist()),
+        rtf_mean=batch.rtf_mean, rtf_std=batch.rtf_std,
+        vmapped=batch.vmapped, trial0_steps_checked=twin_res.n_steps,
+        session_state_bitwise_unchanged=True,
+        graph_misses_before_warmup=misses_warmup,
+        graph_misses_before=misses, graph_misses_after=misses_after,
+        card=json.dumps(card))
+    del sim, twin, twin_res, batch, before
+
+    # [checkpoint], [checkpoint_plastic]
+    for phase, plastic in (("checkpoint", None),
+                           ("checkpoint_plastic", "pair_stdp")):
+        be = backend if plastic is None else FusedBackend(
+            plasticity=plastic)
+        _build.reset_launches()
+        sim = Simulator(cfg, connectome=c, backend=be, device=dev,
+                        probes=probes, plasticity=plastic)
+        sim.warmup(100.0)
+        sim.warmup(30.0, include_presim=False)
+        sim.run(100.0)
+        with tempfile.TemporaryDirectory() as tmp:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            path = sim.save(tmp)
+            save_s = time.perf_counter() - t0
+            n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                          for f in os.listdir(path))
+            run_a = sim.run(30.0)
+            state_a = clone_state(sim.state)
+            gen_a = sim._generator.get_state()
+            misses = be.graphs.misses
+            t0 = time.perf_counter()
+            sim.restore(tmp)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            run_b = sim.run(30.0)
+            if be.graphs.misses != misses:
+                fail(f"{phase}: restore and the run after it captured")
+            same_runs(f"{phase} (A against B)", run_a, run_b)
+            bits = compare_states(f"{phase} (A against B)", state_a,
+                                  sim.state)
+            if not torch.equal(gen_a, sim._generator.get_state()):
+                fail(f"{phase}: the generator's state differs after B")
+            # suspend, then resume and hold the next run to a twin
+            twin = Simulator(cfg, connectome=c, backend=be, device=dev,
+                             probes=probes, plasticity=plastic)
+            twin.state = clone_state(sim.state)
+            torch.cuda.synchronize()
+            mem_before = torch.cuda.memory_allocated()
+            sim.suspend(tmp)
+            gc.collect()
+            mem_after = torch.cuda.memory_allocated()
+            sim.resume(tmp)
+            run_c, run_t = sim.run(30.0), twin.run(30.0, presim_ms=0)
+            same_runs(f"{phase} (resumed against twin)", run_c, run_t)
+            bits_resume = compare_states(f"{phase} (resumed against twin)",
+                                         sim.state, twin.state)
+        runs[phase] = launched(
+            phase, ("lif_deliver",) if plastic is None
+            else ("lif_deliver_plastic", "stdp_update"))
+        say(phase, plasticity=plastic, step=sim._steps_done,
+            checkpoint_bytes=n_bytes, save_s=save_s, restore_s=restore_s,
+            steps_a_b=run_a.n_steps, captures_by_restore=0,
+            exact=json.dumps(["spikes", "pop_counts", "t", "overflow",
+                              "refrac", "generator"]
+                             + (["weights", "x_pre", "x_post"]
+                                if plastic else [])),
+            elements_with_other_bits=json.dumps(bits),
+            allocated_before_suspend=mem_before,
+            allocated_after_suspend=mem_after,
+            resumed_vs_twin_bits=json.dumps(bits_resume),
+            card=json.dumps(card))
+        del sim, twin, state_a, run_a, run_b, run_c, run_t, be
+        gc.collect()
+        torch.cuda.empty_cache()
+    del backend
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [scenarios]: the four committed scenario files, each at its own
+    # scale and duration
+    for path in sorted((ROOT / "examples" / "scenarios").glob("*.json")):
+        exp = Experiment.from_json(str(path))
+        _build.reset_launches()
+        result = exp.run(warmup=True, device=dev)
+        name = f"scenario:{path.stem}"
+        runs[name] = launched(name, ("lif_update",) + (
+            () if exp.plasticity is None else ("stdp_update",)))
+        res = result.trials[0]
+        say("scenarios", file=path.name, scale=exp.model.scale,
+            strategy=exp.model.strategy,
+            plasticity=None if exp.plasticity is None
+            else exp.plasticity.kind,
+            duration_ms=exp.duration_ms, rtf=res.rtf, overflow=res.overflow,
+            validate=exp.validate,
+            passed=None if result.report is None else result.report.passed,
+            rates_hz=json.dumps([round(float(r), 3) for r in
+                                 res.summary()["rates_hz"]]),
+            launches=json.dumps({k: v for k, v in runs[name].items() if v}))
+        if result.report is not None:
+            for line in result.report.table().splitlines():
+                print(f"[scenario_report] {path.stem}: {line}", flush=True)
+            if not result.report.passed:
+                fail(f"scenario {path.name}: validation failed")
+        del exp, result, res
+        gc.collect()
+        torch.cuda.empty_cache()
+    return runs
 
 
 def main() -> None:
@@ -1263,7 +1596,7 @@ def main() -> None:
     t_chunk, n_chunks = 10.0, 5
     sim.warmup(t_chunk * n_chunks, include_presim=False)
     one = sim.run(t_chunk * n_chunks)
-    one_state = {k: v.clone() for k, v in state_tensors(sim.state).items()}
+    one_state = clone_state(sim.state)
     sim.state = clone_state(start)
     sim._generator.set_state(gen0)
     misses = []
@@ -1273,19 +1606,8 @@ def main() -> None:
     if len(set(misses)) != 1:
         fail(f"run_chunked: chunks 2..{n_chunks} captured new graphs "
              f"(graph-cache misses after each chunk: {misses})")
-    if not np.array_equal(chunked["pop_counts"], one["pop_counts"]):
-        fail("run_chunked's population counts differ from run's")
-    bits = {}
-    for name, x in state_tensors(sim.state).items():
-        y = one_state[name]
-        bits[name] = int((x.view(torch.int32) != y.view(torch.int32)).sum()) \
-            if x.dtype == torch.float32 else int((x != y).sum())
-        if name in ATOMIC_FED:
-            if not torch.allclose(x, y, rtol=RING_RTOL, atol=RING_ATOL):
-                fail(f"run_chunked's {name} beyond rtol = atol = "
-                     f"{RING_RTOL} of run's")
-        elif bits[name]:
-            fail(f"run_chunked's {name} differs from run's")
+    same_runs("run_chunked against run", chunked, one)
+    bits = compare_states("run_chunked against run", sim.state, one_state)
     say("run_chunked", chunks=n_chunks, steps=chunked.n_steps,
         graph_misses_after_each_chunk=json.dumps(misses),
         pop_counts_equal=True, elements_with_other_bits=json.dumps(bits))
@@ -1602,8 +1924,14 @@ def main() -> None:
         stdp_update_full_step=json.dumps(k5_full),
         stdp_update_whole_table_clip=json.dumps(k5_clip))
 
-    # -- 9. the dense strategy ------------------------------------------------
-    del sim, rule, tables, tbl, ptables, pmask, w_static, w, w_t, lib_in, c
+    # -- 9. the session API at full scale -------------------------------------
+    del sim, rule, tables, tbl, ptables, pmask, w_static, w, w_t, lib_in
+    gc.collect()
+    torch.cuda.empty_cache()
+    api_runs = session_api_phase(c, args, card, dev)
+
+    # -- 10. the dense strategy -----------------------------------------------
+    del c
     gc.collect()
     torch.cuda.empty_cache()
     say("freed", allocated_bytes=torch.cuda.memory_allocated(),
@@ -1794,7 +2122,7 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 10. K6 and the LM layers at Qwen3-32B widths -------------------------
+    # -- 11. K6 and the LM layers at Qwen3-32B widths -------------------------
     att = attention_phase(args.seed)
     max_err["flash_attention"] = att["max_err"]
 
@@ -1805,7 +2133,9 @@ def main() -> None:
                    "split": split_launches[name],
                    "plastic": plastic_launches[name],
                    "dense": dense_launches[name],
-                   "attention": att["launches"][name]}
+                   "attention": att["launches"][name],
+                   **{path: counts[name]
+                      for path, counts in api_runs.items()}}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,

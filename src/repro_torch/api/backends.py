@@ -11,7 +11,12 @@ A backend owns the device tables and speaks the reference's protocol
 ``data`` maps each per-step probe's name to a ``[n_steps, ...]`` tensor
 and each stream probe's name to its carry after the run; ``stream`` seeds
 the stream carries (``{name: carry}``; missing ones start from
-``probe.init``).  Two engines (``make_backend``):
+``probe.init``).  ``run_batch`` runs a list of independent trial states
+one after the other over the same graphs (``repro/api/backends.py:89-160``;
+a batch axis inside K3/K4 would be a kernel of its own).  ``built_for``
+tells a ``Simulator`` that a backend it is handed is already built for its
+network, so that sessions share the tables and the captured graphs.  Two
+engines (``make_backend``):
 
 * ``fused`` -- the production loop, static or with a plasticity rule.  On
   CPU tensors its steps run eagerly, one after the other.  On a card the
@@ -48,12 +53,20 @@ first one (``head`` steps).  The ring and the plastic weights are
 updated in place.
 
 The graphs (``FusedBackend`` on a card).  Every graph reads and writes one
-set of static buffers, the backend's: the state a graph was first captured
-with (V, the currents, refrac, ring, ``t``, overflow, the rotated loop's
-previous spikes; in a plastic session the traces and the live table),
-adopted, not copied.  A run copies a state that is not those buffers into
-them, replays, and returns them, so replays chain and a run advances its
-state in place.  Per key ``(n_steps, probes, graph_steps)`` the
+set of static buffers, the backend's (V, the currents, refrac, ring, ``t``,
+overflow, the rotated loop's previous spikes; in a plastic session the
+traces and the live table), and draws from the backend's own generator.
+The buffers hold one state at a time, the *resident* one, whose tensors
+are aliases of the buffers (``Tensor.set_``): a run of the resident state
+copies nothing, and replays chain.  A run of another state first gives the
+resident state's live tensors storage of their own (a copy, once), then
+copies the new state into the buffers and makes its tensors the aliases.
+So several sessions share one backend, its tables and its graphs, and
+each session's state stays its own; one session pays no copy.  Runs on
+one backend must not overlap in time (one thread at a time).  The
+session's generator state is copied into the backend's before the
+replays and back after them (16 bytes).  Per key
+``(n_steps, probes, graph_steps)`` the
 :class:`~repro_torch.api.graph_cache.GraphCache` holds a head graph of the
 run's first ``head`` steps, a body graph of ``graph_steps`` steady steps,
 replayed ``(n_steps - head) // graph_steps`` times, and a remainder graph;
@@ -61,7 +74,7 @@ each copies its last step's state back into the static buffers and writes
 its probes' rows into the key's ``[n_steps, ...]`` outputs at a row counter
 on the device.  Stream carries are static buffers of the key, copied in
 before the replays and out after.  The epilogue runs after the last replay.
-The session's generator is registered with every graph, so each replay
+The backend's generator is registered with every graph, so each replay
 draws the Poisson counts the eager loop would draw next.  Before its first
 capture the backend runs each kind of step once eagerly on a copy of the
 state (building the kernels, their workspaces and argument packs), and
@@ -75,6 +88,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import time
+import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -127,7 +141,16 @@ def _leaves(x) -> list:
     return out
 
 
-def _copy_into(dst, src) -> None:
+def _alias(x: torch.Tensor) -> torch.Tensor:
+    """A new tensor object on ``x``'s storage."""
+    return x.new_empty(0).set_(x)
+
+
+def _weak_leaves(x) -> tuple:
+    return tuple(weakref.ref(leaf) for leaf in _leaves(x))
+
+
+def copy_into(dst, src) -> None:
     """Copy every tensor of ``src`` into its place in ``dst`` (the same
     tree), skipping the ones that are the same tensor."""
     for a, b in zip(_leaves(dst), _leaves(src), strict=True):
@@ -156,6 +179,9 @@ class Backend:
     """Protocol base; concrete backends override build / init / run."""
 
     name: str = "abstract"
+    #: builds so far: a session that sees another count than at its last
+    #: look checks ``built_for`` again (another session may have rebuilt)
+    builds: int = 0
 
     def build(self, c: Connectome, cfg: SimConfig, device) -> None:
         raise NotImplementedError
@@ -171,12 +197,73 @@ class Backend:
     def warmup(self, state: Any, n_steps: int, probes: Sequence) -> None:
         """Ready a ``run`` of this length; must not change ``state``."""
 
+    def run_batch(self, states: list, n_steps: int, probes: Sequence,
+                  stream: Optional[list] = None
+                  ) -> Tuple[list, list, list]:
+        """Advance independent trial states, one ``run`` after the other:
+        returns the states, each trial's ``data`` and each trial's wall
+        seconds (``stream``, when given, holds each trial's stream seeds).
+        A trial after the first that captures a graph raises: trials of
+        one length share their graphs."""
+        probes = tuple(probes)
+        out_states, datas, walls = [], [], []
+        captures = None
+        for i, state in enumerate(states):
+            t0 = time.perf_counter()
+            state, data = self.run(state, n_steps, probes,
+                                   stream=None if stream is None
+                                   else stream[i])
+            self._sync()
+            walls.append(time.perf_counter() - t0)
+            now = sum(cache.misses for cache in self.caches())
+            if captures is not None and now != captures:
+                raise RuntimeError(
+                    f"run_batch: trial {i} ({n_steps} steps) captured a new "
+                    f"graph; trials of one length share the first's")
+            captures = now
+            out_states.append(state)
+            datas.append(data)
+        return out_states, datas, walls
+
+    def warmup_batch(self, states: list, n_steps: int,
+                     probes: Sequence) -> None:
+        """Ready a ``run_batch`` of this length: the trials run one after
+        the other, so one trial's warmup readies them all."""
+        self.warmup(states[0], n_steps, tuple(probes))
+
+    def is_warm_batch(self, n_trials: int, n_steps: int,
+                      probes: Sequence) -> bool:
+        """True when a ``run_batch`` of this shape would capture nothing;
+        the ``Simulator`` then raises if it does."""
+        return False
+
+    def built_for(self, c: Connectome, cfg: SimConfig, device) -> bool:
+        """True when ``build(c, cfg, device)`` would give the current build
+        (the same connectome object and resolved config): a ``Simulator``
+        handed this backend then skips the build and shares its tables and
+        graphs (``repro/api/backends.py:172-183``)."""
+        if getattr(self, "c", None) is not c \
+                or self.device != torch.device(device):
+            return False
+        kind = None if self.plasticity is None else self.plasticity.kind
+        try:
+            return self.cfg == self._normalize_cfg(resolve_sim_config(
+                cfg, c, self.device, plastic=kind))
+        except (ValueError, TypeError, RuntimeError):
+            # a config that does not resolve, or a stimulus holding
+            # tensors that do not compare: build, which raises or rebuilds
+            return False
+
     def supports_probe(self, probe) -> bool:
         return True
 
     def _normalize_cfg(self, cfg: SimConfig) -> SimConfig:
         """Backend-specific fixup of the resolved config (identity here)."""
         return cfg
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def caches(self) -> Tuple[GraphCache, ...]:
         """Every :class:`GraphCache` this backend owns: what
@@ -200,6 +287,7 @@ class _LoopBackend(Backend):
         self.timers: Dict[str, float] = {}
 
     def build(self, c: Connectome, cfg: SimConfig, device) -> None:
+        self.builds += 1
         self.device = torch.device(device)
         kind = None if self.plasticity is None else self.plasticity.kind
         cfg = self._normalize_cfg(resolve_sim_config(cfg, c, self.device,
@@ -375,8 +463,7 @@ class _LoopBackend(Backend):
         for i in range(self.head + 1):
             carry, _ = self._step(carry, i)
         self._epilogue(carry, self.head + 1)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        self._sync()
 
 
 class _Graph:
@@ -458,9 +545,13 @@ class FusedBackend(_LoopBackend):
         self.graphs = GraphCache("fused.graphs")
 
     def build(self, c, cfg, device) -> None:
+        """Build the tables; the graphs and the static buffers of an
+        earlier build go (they read the old tables)."""
         super().build(c, cfg, device)
         self.graphs.clear()
         self._io: Optional[Carry] = None     # the static buffers
+        self._resident: tuple = ()           # weakrefs: the resident state
+        self._generator = torch.Generator(device=self.device)
         self._warm = False
         self._pool = None
 
@@ -470,6 +561,9 @@ class FusedBackend(_LoopBackend):
 
     def _key(self, n_steps: int, probes) -> tuple:
         return (int(n_steps), tuple(probes), self.graph_steps)
+
+    def is_warm_batch(self, n_trials, n_steps, probes) -> bool:
+        return self.graphed and self._key(n_steps, probes) in self.graphs
 
     def warmup(self, state, n_steps, probes) -> None:
         """On a card: capture the graphs of a run of ``n_steps`` with
@@ -496,22 +590,37 @@ class FusedBackend(_LoopBackend):
     # -- the graphs ----------------------------------------------------------
 
     def _static(self, state) -> Carry:
-        """The static buffers; the first state asked for is adopted."""
+        """The static buffers.  The first are aliases of the first state
+        asked for, which becomes the resident one (nothing is copied)."""
         if self._io is None:
-            sim, ps = self._split_state(state)
+            sim, ps = self._split_state(tree_map(_alias, state))
             spk = torch.zeros(self.c.n_total, dtype=torch.bool,
                               device=self.device) if self.fused else None
-            self._io = Carry(sim, ps, spk, ())
+            self._io = Carry(sim._replace(generator=self._generator), ps,
+                             spk, ())
+            self._resident = _weak_leaves(state)
         return self._io
 
     def _load(self, state) -> Carry:
-        """Copy ``state`` into the static buffers (what already is one is
-        left alone), and its generator's state into theirs."""
+        """Make ``state`` the resident one (a copy unless it already is)
+        and copy its generator's state into the backend's."""
         io = self._static(state)
-        sim, ps = self._split_state(state)
-        _copy_into((io.sim, io.ps), (sim, ps))
-        if sim.generator is not io.sim.generator:
-            io.sim.generator.set_state(sim.generator.get_state())
+        leaves = _leaves(state)
+        if not (len(leaves) == len(self._resident)
+                and all(r() is x for r, x in zip(self._resident, leaves))):
+            bufs = _leaves((io.sim, io.ps))
+            # the resident state's live tensors keep its values
+            for ref, buf in zip(self._resident, bufs):
+                x = ref()
+                if x is not None and x.data_ptr() == buf.data_ptr():
+                    x.set_(x.clone())
+            for buf, x in zip(bufs, leaves, strict=True):
+                buf.copy_(x)
+                x.set_(buf)
+            self._resident = _weak_leaves(state)
+        gen = self._split_state(state)[0].generator
+        if gen is not None:
+            self._generator.set_state(gen.get_state())
         return io
 
     def _capture(self, state, n_steps: int, probes: tuple) -> GraphSet:
@@ -554,7 +663,7 @@ class FusedBackend(_LoopBackend):
             static = Carry(io.sim, io.ps, io.spk_prev, entry.streams)
             carry, outs = self._segment(static, first, length, step_probes,
                                         stream_probes)
-            _copy_into(static, carry)
+            copy_into(static, carry)
             at = entry.row + rows
             for out, buf in zip(entry.outs, outs):
                 out.index_copy_(0, at, torch.stack(buf))
@@ -567,19 +676,22 @@ class FusedBackend(_LoopBackend):
             self._key(n_steps, probes),
             lambda: self._capture(state, n_steps, probes))
         io = self._load(state)
-        _copy_into(entry.streams,
+        copy_into(entry.streams,
                    self._stream_carries(stream_probes, stream))
         entry.row.zero_()
         if io.spk_prev is not None:
             io.spk_prev.zero_()
         entry.replay()
         carry = self._epilogue(io._replace(streams=()), n_steps)
-        _copy_into((io.sim, io.ps), (carry.sim, carry.ps))
+        copy_into((io.sim, io.ps), (carry.sim, carry.ps))
+        gen = self._split_state(state)[0].generator
+        if gen is not None:
+            gen.set_state(self._generator.get_state())
         data = {p.name: out.clone()
                 for p, out in zip(step_probes, entry.outs)}
         data.update((p.name, tree_map(torch.clone, sc))
                     for p, sc in zip(stream_probes, entry.streams))
-        return self._state_of(io), data
+        return state, data
 
 
 class InstrumentedBackend(_LoopBackend):
@@ -611,10 +723,6 @@ class InstrumentedBackend(_LoopBackend):
         if not self._warmed:
             self._warm_eagerly(state)
             self._warmed = True
-
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
 
     def run(self, state, n_steps: int, probes: Sequence,
             stream: Optional[Dict[str, Any]] = None):

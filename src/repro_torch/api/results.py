@@ -56,6 +56,70 @@ class RunResult:
         return recording.activity_summary(self["pop_counts"],
                                           self._connectome, self.dt)
 
+    def validate(self, spec=None):
+        """Judge this run against the reference bands
+        (``repro_torch.validate``)."""
+        from repro_torch import validate as V
+        return V.validate(self, spec=spec)
+
+
+@dataclasses.dataclass
+class BatchResult:
+    """Outcome of ``Simulator.run_batch``: independent trials.
+
+    The trials ran one after the other over one set of graphs
+    (``vmapped`` is False, kept for the reference's field), so each
+    trial's ``wall_s`` and RTF is its own latency; ``wall_s`` is the whole
+    batch's."""
+    trials: List[RunResult]
+    wall_s: float
+    vmapped: bool = False
+    seeds: List[int] = dataclasses.field(default_factory=list)
+
+    def __len__(self) -> int:
+        return len(self.trials)
+
+    def __iter__(self):
+        return iter(self.trials)
+
+    def __getitem__(self, i: int) -> RunResult:
+        return self.trials[i]
+
+    @property
+    def rtf_trials(self) -> np.ndarray:
+        return np.array([r.rtf for r in self.trials])
+
+    @property
+    def rtf_mean(self) -> float:
+        return float(self.rtf_trials.mean())
+
+    @property
+    def rtf_std(self) -> float:
+        return float(self.rtf_trials.std())
+
+    def pooled(self) -> RunResult:
+        """One result pooling the trials: the per-step data concatenated
+        along the step axis, the overflows summed, and each spike-stats
+        carry pooled across trials (``stats.pool_carries``; another
+        stream keeps the last trial's snapshot)."""
+        from repro_torch.validate.stats import SpikeStatsCarry, pool_carries
+        res = concat(self.trials)
+        res.wall_s = self.wall_s
+        res.overflow = sum(r.overflow for r in self.trials)
+        streams = {}
+        for name, snap in self.trials[0].streams.items():
+            snaps = [r.streams[name] for r in self.trials]
+            carry = pool_carries([s["carry"] for s in snaps]) \
+                if isinstance(snap["carry"], SpikeStatsCarry) \
+                else snaps[-1]["carry"]
+            streams[name] = {"carry": carry, "meta": dict(snap["meta"])}
+        res.streams = streams
+        return res
+
+    def validate(self, spec=None):
+        """The across-trial validation report (see :meth:`pooled`)."""
+        return self.pooled().validate(spec=spec)
+
 
 def concat(results: List[RunResult]) -> RunResult:
     """Concatenate chunk results along the step axis (``run_chunked``):

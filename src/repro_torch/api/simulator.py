@@ -14,12 +14,20 @@
                         plasticity="pair_stdp")   # E->E pair STDP
     sim_state, plastic_state = plastic.state
 
+    batch = sim.run_batch(200.0, n_trials=3)    # seeds 55, 56, 57
+    print(batch.rtf_mean, batch.validate().passed)
+
+    sim.save("ckpt")                 # ckpt/step_<steps>/host_0.npz, ...
+    sim.suspend("ckpt"); sim.resume("ckpt")    # release the state, and back
+
 The session runs on ``cuda`` unless the caller passes ``device="cpu"``; on
 a machine without CUDA, ``Simulator(...)`` with no device raises instead of
 carrying on on the CPU.  The backend is ``"fused"`` (on a card its loop is
 captured in CUDA graphs) or ``"instrumented"`` (the eager phase-split loop
-with per-phase timers); see ``repro_torch.api.backends``.  ``run_batch``,
-checkpoints and the sharded backend wait for later slices.
+with per-phase timers), or a backend instance, which sessions of one
+network share (built once, its graphs captured once; each session's state
+stays its own); see ``repro_torch.api.backends``.  The sharded backend
+waits for a later slice.
 """
 from __future__ import annotations
 
@@ -28,12 +36,14 @@ import time
 import warnings
 from typing import Callable, Optional, Sequence
 
+import numpy as np
 import torch
 
 from repro_torch.api import probes as probes_mod
 from repro_torch.api import results as results_mod
-from repro_torch.api.backends import Backend, make_backend, tree_map
-from repro_torch.api.results import RunResult
+from repro_torch.api.backends import (Backend, copy_into, make_backend,
+                                      tree_map)
+from repro_torch.api.results import BatchResult, RunResult
 from repro_torch.core import stimulus as stimulus_mod
 from repro_torch.core.connectivity import Connectome, build_connectome
 from repro_torch.core.engine import SimConfig
@@ -97,14 +107,32 @@ class Simulator:
         self.t_presim = float(config.t_presim)
         self.backend: Backend = make_backend(backend, plasticity=plasticity)
         self.plasticity = self.backend.plasticity
-        self.backend.build(connectome, sim_config, self.device)
+        # a backend handed over already built for this network is shared:
+        # its tables and captured graphs serve every session on it
+        self._asked = sim_config
+        self._build = -1
+        self._ensure_built()
         self.sim_config = self.backend.cfg          # resolved
         self.probes = probes_mod.resolve(probes)
         self._check_probes(self.probes)
         self._key = seed if key is None else int(key)
-        # one generator for the session's life: the graphs draw from it
+        # one generator for the session's life (a graphed backend copies
+        # its state in before each run and out after it)
         self._generator = torch.Generator(device=self.device)
         self.reset()
+
+    def _ensure_built(self) -> None:
+        """Build the backend for this session's network and config unless
+        it already is.  Checked again only when the backend was built since
+        this session last looked: a session built on it for another network
+        or config rebuilds it, and this session's next call rebuilds it
+        back (both states stay their own)."""
+        if self.backend.builds == self._build:
+            return
+        if not self.backend.built_for(self.connectome, self._asked,
+                                      self.device):
+            self.backend.build(self.connectome, self._asked, self.device)
+        self._build = self.backend.builds
 
     # -- session state ------------------------------------------------------
 
@@ -112,6 +140,7 @@ class Simulator:
         """Fresh dynamical state (the presim transient applies again).
         ``key`` re-seeds the session's generator (an int seed); without it
         the generator starts again from the session's seed."""
+        self._ensure_built()
         if key is not None:
             self._key = int(key)
         self._generator.manual_seed(self._key)
@@ -136,6 +165,7 @@ class Simulator:
         ``SimState``, or in a plastic session the pair.  The session's
         counters stay, so a pending presim runs from it.  The state's
         generator, if any, hands its state to the session's."""
+        self._ensure_built()
         if self.plasticity is not None:
             if not (isinstance(value, tuple) and len(value) == 2
                     and isinstance(value[1], PlasticState)):
@@ -160,6 +190,18 @@ class Simulator:
         sim = sim._replace(generator=self._generator)
         self._state = sim if ps is None else (sim, ps)
         self._overflow_seen = int(sim.overflow.item())
+
+    @property
+    def suspended(self) -> bool:
+        """True while the state is released (see :meth:`suspend`)."""
+        return self._state is None
+
+    def _require_state(self, what: str) -> None:
+        if self._state is None:
+            raise RuntimeError(
+                f"cannot {what}: this session is suspended (its device "
+                f"state was released by suspend()); call resume(directory)"
+                f" first")
 
     @property
     def timers(self):
@@ -195,6 +237,8 @@ class Simulator:
         following ``run`` of that length measures execution only: on a card
         the fused backend captures its graphs, the instrumented one loads
         its kernels.  The session state is untouched."""
+        self._require_state("warmup")
+        self._ensure_built()
         pr = self._resolve(probes)
         self.backend.warmup(self._state, self._steps(t_ms), pr)
         if include_presim and self.t_presim > 0 and not self._presim_done:
@@ -217,6 +261,8 @@ class Simulator:
         """Simulate ``t_ms`` of model time.  The presim transient
         (``config.t_presim`` unless ``presim_ms`` is given) runs untimed and
         unrecorded once per session first, as in the paper's protocol."""
+        self._require_state("run")
+        self._ensure_built()
         pr = self._resolve(probes)
         _, stream_probes = probes_mod.split_probes(pr)
         self._maybe_presim(presim_ms)
@@ -254,21 +300,24 @@ class Simulator:
                     probes: Optional[Sequence] = None,
                     callback: Optional[Callable[[int, RunResult],
                                                 None]] = None,
-                    checkpoint_dir: Optional[str] = None) -> RunResult:
+                    checkpoint_dir: Optional[str] = None,
+                    checkpoint_every: int = 1) -> RunResult:
         """``run`` split into chunks of ``chunk_ms``: the same result as one
         ``run(t_ms)`` of the session (the state threads through the chunk
         boundaries), with the probes' data on the host after each chunk and
         ``callback(i, chunk_result)`` after chunk ``i``.  Chunks 2..N of a
-        length already run must capture nothing: a new capture raises.  A
+        length already run must capture nothing: a new capture raises.
+        ``checkpoint_dir`` saves the session there every
+        ``checkpoint_every`` chunks (:meth:`save`).  A
         ``DeliveryOverflowError`` under ``strict_delivery`` carries the
-        completed chunks as its ``partial``.  Checkpoints wait for the
-        checkpoint slice."""
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "run_chunked(checkpoint_dir=...): checkpoints are not "
-                "ported yet")
+        completed chunks as its ``partial``."""
         if chunk_ms <= 0:
             raise ValueError("chunk_ms must be positive")
+        if checkpoint_every < 1:
+            raise ValueError(f"checkpoint_every must be >= 1, got "
+                             f"{checkpoint_every}")
+        self._require_state("run_chunked")
+        self._ensure_built()
         self._maybe_presim(presim_ms)
         total = self._steps(t_ms)
         per_chunk = max(1, self._steps(chunk_ms))
@@ -294,6 +343,9 @@ class Simulator:
             done += n
             if callback is not None:
                 callback(len(chunks), res)
+            if checkpoint_dir is not None \
+                    and len(chunks) % checkpoint_every == 0:
+                self.save(checkpoint_dir)
         return results_mod.concat(chunks)
 
     def _captures(self) -> int:
@@ -309,15 +361,170 @@ class Simulator:
         raise under ``SimConfig.strict_delivery``."""
         overflow = self.backend.overflow(self._state)
         if overflow > self._overflow_seen:
-            msg = (f"spike delivery dropped {overflow - self._overflow_seen}"
-                   f" spike(s) this run ({overflow} cumulative): the "
-                   f"per-step spike_budget={self.sim_config.spike_budget} "
-                   f"of strategy {self.sim_config.strategy!r} was exceeded "
-                   f"-- raise spike_budget (or leave it None for the "
-                   f"rate-derived auto value)")
+            dropped = overflow - self._overflow_seen
             self._overflow_seen = overflow
-            if self.sim_config.strict_delivery:
-                from repro_torch.core.delivery import DeliveryOverflowError
-                raise DeliveryOverflowError(msg)
-            warnings.warn(msg, stacklevel=3)
+            self._report_overflow(f"{dropped} spike(s) this run ({overflow} "
+                                  f"cumulative)")
         return overflow
+
+    def _report_overflow(self, what: str) -> None:
+        """Raise under ``strict_delivery``, else warn, that delivery
+        dropped ``what``."""
+        msg = (f"spike delivery dropped {what}: the per-step spike_budget="
+               f"{self.sim_config.spike_budget} of strategy "
+               f"{self.sim_config.strategy!r} was exceeded -- raise "
+               f"spike_budget (or leave it None for the rate-derived auto "
+               f"value)")
+        if self.sim_config.strict_delivery:
+            from repro_torch.core.delivery import DeliveryOverflowError
+            raise DeliveryOverflowError(msg)
+        warnings.warn(msg, stacklevel=4)
+
+    # -- multi-trial batches ------------------------------------------------
+
+    def _trial_seeds(self, n_trials: Optional[int], seeds) -> list:
+        if seeds is None:
+            if n_trials is None:
+                raise ValueError("pass n_trials or explicit seeds")
+            base = int(self.config.seed)
+            return [base + i for i in range(int(n_trials))]
+        seeds = [int(s) for s in seeds]
+        if n_trials is not None and len(seeds) != int(n_trials):
+            raise ValueError(f"{len(seeds)} seeds for n_trials={n_trials}")
+        return seeds
+
+    def warmup_batch(self, t_ms: float, n_trials: int,
+                     probes: Optional[Sequence] = None,
+                     include_presim: bool = True) -> None:
+        """Ready a ``run_batch`` of this shape, so that it measures
+        execution only: the trials share one set of graphs, which this
+        captures (the session state is untouched)."""
+        self._require_state("warmup_batch")
+        self._ensure_built()
+        pr = self._resolve(probes)
+        states = [self._state]
+        if include_presim and self.t_presim > 0:
+            self.backend.warmup_batch(states, self._steps(self.t_presim), ())
+        self.backend.warmup_batch(states, self._steps(t_ms), pr)
+        self._sync()
+
+    def run_batch(self, t_ms: float, n_trials: Optional[int] = None, *,
+                  seeds: Optional[Sequence[int]] = None,
+                  presim_ms: Optional[float] = None,
+                  probes: Optional[Sequence] = None) -> BatchResult:
+        """``n_trials`` independent trials of ``t_ms`` each
+        (``repro/api/simulator.py:312-392``).
+
+        Trial ``i`` starts from a fresh state drawn from ``seeds[i]``
+        (default ``config.seed + i``) and equals a fresh ``reset(seeds[i]);
+        run(t_ms)``, its presim (untimed) included.  The trials run one
+        after the other over the backend's graphs (``vmapped`` is False and
+        each trial's wall time is its own); no trial after the first
+        captures.  Stream carries are per trial; ``validate()`` pools them.
+        Overflow across the batch is surfaced as a run's is.  The session's
+        own state is untouched."""
+        self._ensure_built()
+        seeds = self._trial_seeds(n_trials, seeds)
+        pr = self._resolve(probes)
+        step_probes, stream_probes = probes_mod.split_probes(pr)
+        states = []
+        for s in seeds:
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(s)
+            states.append(self.backend.init(gen))
+        t_pre = self.t_presim if presim_ms is None else float(presim_ms)
+        if t_pre > 0:
+            states, _, _ = self.backend.run_batch(states, self._steps(t_pre),
+                                                  ())
+        n_steps = self._steps(t_ms)
+        warm = self.backend.is_warm_batch(len(seeds), n_steps, pr)
+        captures = self._captures()
+        self._sync()
+        t0 = time.perf_counter()
+        states, datas, walls = self.backend.run_batch(states, n_steps, pr)
+        self._sync()
+        wall = time.perf_counter() - t0
+        if warm and self._captures() != captures:
+            raise RuntimeError(
+                f"run_batch({len(seeds)} trials x {n_steps} steps) captured "
+                f"a graph after warmup_batch")
+        host = lambda x: x.cpu().numpy()
+        trials = []
+        for state, data, trial_wall in zip(states, datas, walls):
+            streams = {p.name: {"carry": tree_map(host, data.pop(p.name)),
+                                "meta": dict(p.meta)}
+                       for p in stream_probes}
+            trials.append(RunResult(
+                data={p.name: host(data[p.name]) for p in step_probes},
+                t_model_ms=n_steps * self.sim_config.dt, n_steps=n_steps,
+                dt=self.sim_config.dt, wall_s=trial_wall,
+                overflow=self.backend.overflow(state),
+                device=self._device_name(), streams=streams,
+                _connectome=self.connectome))
+        overflow = sum(r.overflow for r in trials)
+        if overflow > 0:
+            self._report_overflow(f"{overflow} spike(s) across "
+                                  f"{len(trials)} trial(s)")
+        return BatchResult(trials=trials, wall_s=wall, vmapped=False,
+                           seeds=list(seeds))
+
+    # -- checkpoints --------------------------------------------------------
+
+    def _package(self) -> dict:
+        return {
+            "state": self._state,
+            "presim_done": np.asarray(int(self._presim_done), np.int64),
+            "steps_done": np.asarray(self._steps_done, np.int64),
+            "t_model_ms": np.asarray(self._t_model_ms, np.float64),
+        }
+
+    def save(self, directory: str, keep: int = 3) -> str:
+        """Write the session (its state, generator and counters) to
+        ``directory/step_<steps done>`` for :meth:`restore`; returns the
+        path."""
+        self._require_state("save")
+        from repro_torch.checkpoint import checkpointer
+        return checkpointer.save(self._package(), directory,
+                                 step=self._steps_done, keep=keep)
+
+    def suspend(self, directory: str, keep: int = 3) -> str:
+        """Save the session, then release its state: a suspended session
+        holds no device tensor of its own.  The backend's tables, graphs
+        and static buffers stay, warm for every session on it (where the
+        session's state was the one resident in the buffers, the buffers
+        keep their memory).  :meth:`resume` undoes it exactly.  Returns
+        the checkpoint's path."""
+        path = self.save(directory, keep=keep)
+        self._state = None
+        return path
+
+    def resume(self, directory: str, step: Optional[int] = None) -> None:
+        """Undo :meth:`suspend`: a fresh state takes the checkpoint's
+        values.  On a live session the same as :meth:`restore`."""
+        self._ensure_built()
+        if self._state is None:
+            self._state = self.backend.init(self._generator)
+        self.restore(directory, step=step)
+
+    def restore(self, directory: str, step: Optional[int] = None) -> None:
+        """Go back to a saved session: its state and generator are copied
+        into the session's own tensors (on a graphed backend, into the
+        static buffers if the session is resident; nothing is captured),
+        its counters and presim flag taken.  The config and backend must
+        be the saving session's: a schema, structure or shape that differs
+        raises ``CheckpointMismatchError`` naming the leaf.  The stream
+        probes' statistics restart empty here (they are not saved): they
+        then cover what runs after the restore, never a stale window."""
+        self._require_state("restore (use resume() on a suspended session)")
+        self._ensure_built()
+        from repro_torch.checkpoint import checkpointer
+        pkg = checkpointer.restore(directory, self._package(), step=step)
+        copy_into(self._state, pkg["state"])
+        restored = pkg["state"] if self.plasticity is None \
+            else pkg["state"][0]
+        self._generator.set_state(restored.generator.get_state())
+        self._presim_done = bool(int(pkg["presim_done"]))
+        self._steps_done = int(pkg["steps_done"])
+        self._t_model_ms = float(pkg["t_model_ms"])
+        self._overflow_seen = self.backend.overflow(self._state)
+        self._stream_state = {}

@@ -160,6 +160,52 @@ def test_graphed_loop_equals_eager_loop(path):
     assert int(streams.steps) == 33 + 33 + 5 + 1
 
 
+@pytest.mark.parametrize("path", ["static_fused", "plastic_fused"])
+def test_sessions_sharing_a_backend_are_independent(path):
+    """Two sessions on one graphed backend, run in turns (a, b, a, b), are
+    bitwise two lone sessions: each keeps its own state and generator.  The
+    second session's construction builds nothing, and its runs capture
+    nothing new; a session with another config rebuilds, which drops the
+    graphs."""
+    p = PATHS[path]
+    shared = _GraphedOnCpu(plasticity=p["plasticity"],
+                           graph_steps=GRAPH_STEPS)
+    a = _session(path, backend=shared, key=1)
+    lone_a = _session(path, backend="graphed", key=1)
+    first = a.run(3.3)
+    _assert_same_run(first, lone_a.run(3.3))
+    tables, misses = shared.net, shared.graphs.misses
+    # the same probe instances: a stream probe is its own graph key
+    b = _session(path, backend=shared, key=2, connectome=a.connectome,
+                 probes=a.probes)
+    lone_b = _session(path, backend="graphed", key=2)
+    assert shared.net is tables and shared.graphs.misses == misses
+    for sess, lone in ((b, lone_b), (a, lone_a), (b, lone_b)):
+        _assert_same_run(sess.run(3.3), lone.run(3.3))
+    assert shared.graphs.misses == misses
+    for sess, lone in ((a, lone_a), (b, lone_b)):
+        _assert_same_state(sess.state, lone.state)
+        assert torch.equal(sess._generator.get_state(),
+                           lone._generator.get_state())
+    sa, sb = _state_arrays(a.state), _state_arrays(b.state)
+    assert not np.array_equal(sa["V"], sb["V"])
+    ring = (a.state if path.startswith("static") else a.state[0]).ring
+    ring_b = (b.state if path.startswith("static") else b.state[0]).ring
+    assert ring.data_ptr() != ring_b.data_ptr()
+    c = _session(path, backend=shared, connectome=a.connectome,
+                 spike_budget=300)
+    assert shared.net is not tables and len(shared.graphs) == 0
+    _assert_same_state(a.state, lone_a.state)
+    # a's next run builds the backend back for a's config, and c's for c's
+    lone_c = _session(path, backend="graphed", connectome=a.connectome,
+                      spike_budget=300)
+    for sess, lone in ((a, lone_a), (c, lone_c), (a, lone_a)):
+        _assert_same_run(sess.run(3.3), lone.run(3.3))
+        assert shared.cfg == lone.backend.cfg
+    for sess, lone in ((a, lone_a), (c, lone_c)):
+        _assert_same_state(sess.state, lone.state)
+
+
 def test_graph_set_holds_head_body_and_remainder():
     sim = _session("plastic_fused", backend="graphed", t_presim=0.0)
     sim.warmup(3.3)
@@ -204,10 +250,18 @@ def test_run_chunked_equals_run(backend):
         assert captures == [0] * 5
 
 
-def test_run_chunked_refuses_checkpoints():
+def test_run_chunked_refuses_checkpoints(tmp_path):
+    """``run_chunked`` checkpoints (``tests/test_torch_checkpoint.py``), but
+    refuses a ``checkpoint_every`` below 1, before it runs or writes
+    anything, and a suspended session."""
     sim = _session("static_fused")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        sim.run_chunked(1.0, 0.5, checkpoint_dir="ckpt")
+    with pytest.raises(ValueError, match="checkpoint_every"):
+        sim.run_chunked(1.0, 0.5, checkpoint_dir=str(tmp_path),
+                        checkpoint_every=0)
+    assert sim._steps_done == 0 and not any(tmp_path.iterdir())
+    sim.suspend(str(tmp_path))
+    with pytest.raises(RuntimeError, match="suspended"):
+        sim.run_chunked(1.0, 0.5, checkpoint_dir=str(tmp_path))
 
 
 @pytest.mark.parametrize("plastic", [False, True])

@@ -32,7 +32,9 @@ def test_port_files_found():
     assert {"chip_smoke.py", "simulator.py", "engine.py", "delivery.py",
             "lif_update.py", "ell_deliver.py", "lif_deliver.py",
             "convert.py", "plasticity.py", "stdp.py",
-            "spike_deliver.py", "flash_attention.py", "layers.py"} <= names
+            "spike_deliver.py", "flash_attention.py", "layers.py",
+            "experiment.py", "checkpointer.py", "reference.py",
+            "report.py", "stats.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
