@@ -179,7 +179,38 @@ Phases, each on its own line; any failed check exits non-zero:
    bf16 tensor-core rate), its plain version's and one
    ``scaled_dot_product_attention`` call's as the library call, with
    that call's own error over ``bf16_bar`` (information, not a gate).
-   Every compared tensor's RMS is printed beside its error.
+   Every compared tensor's RMS is printed beside its error;
+12. the session server (``repro_torch.serve``) over the graphed session,
+   its backend pool building its own connectome at ``--scale``, each
+   sub-phase's launches counted from 0 and summed under ``serve`` in the
+   ``kernels`` line: ``[serve_http]``, a ``SimServer`` on an ephemeral
+   port, two ``ServeClient.create`` of ``Experiment(model=
+   MicrocircuitConfig(scale, strategy="ell"), probes=("pop_counts",
+   "spikes"))`` with seeds 55 and 56 (``auto`` must resolve to the graphed
+   fused loop; each create's wall seconds; the second captures and builds
+   nothing), then session A's first 30 ms streamed in 4 chunks, each
+   chunk's population totals exactly a lone in-process session's
+   ``run_chunked`` from the same seed (300 steps after the presim, the
+   horizon at which ``[shared_backend]`` holds spikes exact), and its
+   next 200 ms streamed in 4 chunks: each chunk's RTF, the overall RTF,
+   the request's wall and its time beyond the chunks' walls (the front
+   end's cost), rates in band, the chunks' equality to the lone session's
+   printed; a second thread polls ``/healthz`` and ``/stats`` throughout
+   the creates and runs, and every reply must be 200;
+   ``[serve_coalesced]``, four sessions (seeds 57-60) run 20 ms through
+   ``run_many(coalesce=True)``, four twins through ``coalesce=False``:
+   spikes and population counts exact, V, the currents and the ring
+   within 1e-5, no capture after the group's first session, each mode's
+   wall seconds; ``[serve_suspend]``, the resident session and a
+   non-resident one suspended (``torch.cuda.memory_allocated`` before
+   and after each), resumed under the zero-capture guard, and their next
+   20 ms held to a twin carried from their state (the same tolerances),
+   with the save and resume seconds and the checkpoint's bytes; the same
+   for a plastic session of ``examples/scenarios/stdp_ee.json`` at its
+   own scale (0.02, ``event``: K1 and ``stdp_update``), its weights and
+   traces exact; ``[serve_smoke]``, ``python -m repro_torch.serve
+   --smoke examples/scenarios/smoke_background.json`` in a process of its
+   own on the card, which must exit 0 (its output printed).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -1160,6 +1191,246 @@ def session_api_phase(c, args, card: str, dev) -> dict:
     return runs
 
 
+def dir_bytes(path) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def serve_phase(args, card: str, dev) -> dict:
+    """Phase 12 (the module's docstring): the session server over the
+    graphed session, its pool building its own connectome at ``--scale``.
+    Returns each sub-phase's launch counts."""
+    import os
+    import threading
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Experiment
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.kernels import _build
+    from repro_torch.serve import (ServeClient, SessionManager, SimServer,
+                                   cache_stats)
+
+    runs = {}
+    compiles = lambda: cache_stats()["compiles"]
+    exp = Experiment(model=MicrocircuitConfig(scale=args.scale,
+                                              strategy="ell"),
+                     probes=("pop_counts", "spikes"), name="serve_full")
+    mgr = SessionManager(device=dev)
+    server = SimServer(mgr, port=0).start()
+    client = ServeClient(server.url, timeout=1200.0)
+
+    # [serve_http]: two creates, a chunked run, while a second thread
+    # polls /healthz and /stats (host only: they must answer throughout)
+    codes, stop = [], threading.Event()
+
+    def poll():
+        while not stop.is_set():
+            for path in ("/healthz", "/stats"):
+                try:
+                    with urllib.request.urlopen(server.url + path,
+                                                timeout=60) as r:
+                        r.read()
+                        codes.append(r.status)
+                except (urllib.error.URLError, OSError) as e:
+                    codes.append(repr(e))
+            stop.wait(0.2)
+
+    poller = threading.Thread(target=poll, daemon=True)
+    poller.start()
+    _build.reset_launches()
+    create_s = []
+    for seed in (args.seed, args.seed + 1):
+        before = compiles()
+        t0 = time.perf_counter()
+        sid = client.create(experiment=exp.to_dict(), seed=seed)["id"]
+        create_s.append(time.perf_counter() - t0)
+        if seed == args.seed:
+            sid_a, compiles_a = sid, compiles()
+        elif compiles() != before:
+            fail(f"serve_http: the second create captured or built "
+                 f"({before} -> {compiles()})")
+    sess_a = mgr.get(sid_a)
+    pol = sess_a.sim.sim_config.kernels
+    if pol.step != "fused" or not sess_a.sim.backend.graphed:
+        fail(f"serve_http: auto resolved to {pol.describe()}, not the "
+             f"graphed fused loop")
+    # the exact check, over the first 300 steps after the presim (where
+    # [shared_backend] holds spikes exact: K3's float atomics add in no
+    # fixed order), in 4 chunks; then the timed 200 ms in 4 chunks
+    check = client.run(sid_a, t_ms=30.0, chunk_ms=7.5)
+    t0 = time.perf_counter()
+    records = client.run(sid_a, t_ms=200.0, chunk_ms=50.0)
+    request_s = time.perf_counter() - t0
+    stop.set()
+    poller.join(120)
+    runs["serve_http"] = launched("serve_http", ("lif_deliver",))
+    bad = [c for c in codes if c != 200]
+    if poller.is_alive() or bad or len(codes) < 4:
+        fail(f"serve_http: the poller saw {len(codes)} replies, not all "
+             f"200: {bad[:5]}")
+    chunks = [r for r in records if "chunk" in r]
+    final = records[-1]
+    if len(chunks) != 4 or not final.get("done"):
+        fail(f"serve_http: {len(chunks)} chunks, final {final}")
+    lone = exp.make_simulator(sess_a.sim.connectome, device=dev,
+                              key=args.seed)
+    lone_check = []
+    lone.run_chunked(30.0, 7.5, callback=lambda i, r: lone_check.append(
+        r["pop_counts"].sum(0).astype(int).tolist()))
+    lone_chunks = []
+    lone.run_chunked(200.0, 50.0, callback=lambda i, r: lone_chunks.append(
+        (r["pop_counts"].sum(0).astype(int).tolist(), r.rtf)))
+    got_check = [r["pop_spikes"] for r in check if "chunk" in r]
+    if got_check != lone_check:
+        fail(f"serve_http: the streamed chunks' population totals over the "
+             f"first 300 steps differ from a lone session's: {got_check} "
+             f"against {lone_check}")
+    chunk_wall = sum(r["rtf"] * r["t_model_ms"] / 1e3 for r in chunks)
+    rates = np.array([r["pop_spikes"] for r in chunks]).sum(0) / (
+        np.asarray(lone.connectome.pop_sizes) * 0.2)
+    check_rates(rates, "serve_http")
+    say("serve_http", scale=args.scale, policy=pol.describe(),
+        create_s=json.dumps(create_s), compiles_after_creates=compiles_a,
+        captures_by_second_create=0,
+        pool=json.dumps(mgr.pool.stats()),
+        check_chunks_equal_to_lone=True, check_steps=300,
+        chunk_rtf=json.dumps([r["rtf"] for r in chunks]),
+        rtf=final["rtf"], request_s=request_s, chunk_wall_s=chunk_wall,
+        front_end_s=request_s - chunk_wall,
+        lone_chunk_rtf=json.dumps([r for _, r in lone_chunks]),
+        chunks_equal_to_lone_200ms=json.dumps(
+            [r["pop_spikes"] == p for r, (p, _) in zip(chunks,
+                                                        lone_chunks)]),
+        rates_hz=json.dumps([round(float(r), 3) for r in rates]),
+        polls=len(codes), polls_200=len(codes) - len(bad),
+        card=json.dumps(card))
+    del lone, lone_check, lone_chunks
+    gc.collect()
+
+    # [serve_coalesced]: four sessions run as one group, four twins one by
+    # one (each with its presim first); <= 300 steps after the presim
+    _build.reset_launches()
+    seeds = list(range(args.seed + 2, args.seed + 6))
+    co = [mgr.create(exp, seed=s) for s in seeds]
+    seq = [mgr.create(exp, seed=s) for s in seeds]
+    walls, results = {}, {}
+    before = compiles()
+    for mode, group in (("coalesced", co), ("sequential", seq)):
+        t0 = time.perf_counter()
+        out = mgr.run_many({s.id: 20.0 for s in group},
+                           coalesce=mode == "coalesced")
+        torch.cuda.synchronize()
+        walls[mode] = (time.perf_counter() - t0,
+                       sum(out[s.id].wall_s for s in group))
+        results[mode] = [out[s.id] for s in group]
+        if mode == "coalesced":
+            after_group = compiles()
+    if after_group - before > 1 or compiles() != after_group:
+        fail(f"serve_coalesced: captured after the group's first session "
+             f"({before} -> {after_group} -> {compiles()})")
+    runs["serve_coalesced"] = launched("serve_coalesced", ("lif_deliver",))
+    bits = {}
+    for a, b, ra, rb in zip(co, seq, results["coalesced"],
+                            results["sequential"]):
+        same_runs(f"serve_coalesced ({a.id} against {b.id})", ra, rb)
+        bits[a.id] = compare_states(f"serve_coalesced ({a.id} against "
+                                    f"{b.id})", a.sim.state, b.sim.state)
+    say("serve_coalesced", sessions=len(co), seeds=json.dumps(seeds),
+        t_ms=20.0, captures_in_group=after_group - before,
+        captures_by_twins=compiles() - after_group,
+        coalesced_wall_s=walls["coalesced"][0],
+        coalesced_run_wall_s=walls["coalesced"][1],
+        sequential_wall_s=walls["sequential"][0],
+        sequential_run_wall_s=walls["sequential"][1],
+        exact=json.dumps(["spikes", "pop_counts", "t", "overflow",
+                          "refrac"]),
+        elements_with_other_bits=json.dumps(bits), card=json.dumps(card))
+
+    # [serve_suspend]: the resident session (the last twin run) and a
+    # non-resident one, each held to a twin carried from its state
+    def suspend_resume(phase, sess, atomics=True):
+        twin = mgr.create(sess.experiment, seed=0)
+        twin.sim.state = clone_state(sess.sim.state)
+        torch.cuda.synchronize()
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        path = sess.suspend()
+        save_s = time.perf_counter() - t0
+        gc.collect()
+        mem1 = torch.cuda.memory_allocated()
+        before = compiles()
+        t0 = time.perf_counter()
+        sess.resume()                   # under the zero-capture guard
+        torch.cuda.synchronize()
+        resume_s = time.perf_counter() - t0
+        run_s = sess.run(20.0)
+        run_t = twin.sim.run(20.0, presim_ms=0)
+        if compiles() != before:
+            fail(f"{phase}: the resume or the run after it captured")
+        same_runs(f"{phase} (resumed against twin)", run_s, run_t)
+        bits = compare_states(f"{phase} (resumed against twin)",
+                              sess.sim.state, twin.sim.state, atomics)
+        mgr.destroy(twin.id)
+        return dict(checkpoint_bytes=dir_bytes(path), save_s=save_s,
+                    resume_s=resume_s, allocated_before_suspend=mem0,
+                    allocated_after_suspend=mem1,
+                    freed_bytes=mem0 - mem1,
+                    resumed_vs_twin_bits=json.dumps(bits))
+
+    _build.reset_launches()
+    resident = seq[-1]
+    if resident.sim.state.ring.data_ptr() != \
+            resident.sim.backend._io.sim.ring.data_ptr():
+        fail("serve_suspend: the last session run is not the resident one")
+    for name, sess in (("resident", resident), ("not_resident", co[0])):
+        say("serve_suspend", session=name, id=sess.id,
+            **suspend_resume(f"serve_suspend ({name})", sess),
+            card=json.dumps(card))
+    runs["serve_suspend"] = launched("serve_suspend", ("lif_deliver",))
+    for s in co + seq:
+        mgr.destroy(s.id)
+    gc.collect()
+    _build.reset_launches()
+    plastic = mgr.create(str(ROOT / "examples" / "scenarios" /
+                             "stdp_ee.json"), seed=args.seed)
+    plastic.run(20.0)
+    fields = suspend_resume("serve_suspend (plastic)", plastic)
+    runs["serve_suspend_plastic"] = launched(
+        "serve_suspend_plastic", ("lif_update", "stdp_update"))
+    say("serve_suspend", session="plastic", id=plastic.id,
+        scale=plastic.experiment.model.scale,
+        strategy=plastic.experiment.model.strategy,
+        policy=plastic.sim.sim_config.kernels.describe(),
+        exact=json.dumps(["spikes", "pop_counts", "t", "overflow", "refrac",
+                          "weights", "x_pre", "x_post"]),
+        **fields, card=json.dumps(card))
+    client.shutdown()
+    server.stop()                       # closes the manager
+    del mgr, server, client, sess_a, co, seq, resident, plastic, results
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [serve_smoke]: the CLI's lifecycle check, in a process of its own
+    t0 = time.perf_counter()
+    smoke = subprocess.run(
+        [sys.executable, "-m", "repro_torch.serve", "--smoke",
+         "examples/scenarios/smoke_background.json"], cwd=ROOT,
+        env={**os.environ, "PYTHONPATH": str(SRC)},
+        capture_output=True, text=True, timeout=600)
+    for line in (smoke.stdout + smoke.stderr).splitlines():
+        print(f"[serve_smoke_out] {line}", flush=True)
+    say("serve_smoke", rc=smoke.returncode,
+        seconds=time.perf_counter() - t0)
+    if smoke.returncode != 0:
+        fail(f"serve_smoke: exit code {smoke.returncode}")
+    return runs
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
@@ -2126,6 +2397,9 @@ def main() -> None:
     att = attention_phase(args.seed)
     max_err["flash_attention"] = att["max_err"]
 
+    # -- 12. the session server -----------------------------------------------
+    serve_runs = serve_phase(args, card, dev)
+
     def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err,
             ops_per_s=FP32_OPS_PER_S):
         b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
@@ -2134,6 +2408,8 @@ def main() -> None:
                    "plastic": plastic_launches[name],
                    "dense": dense_launches[name],
                    "attention": att["launches"][name],
+                   "serve": sum(counts[name]
+                                for counts in serve_runs.values()),
                    **{path: counts[name]
                       for path, counts in api_runs.items()}}
         return {"name": name, "route": "cuda",

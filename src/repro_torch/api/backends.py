@@ -85,6 +85,7 @@ would have.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import time
@@ -93,6 +94,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api.graph_cache import GraphCache
 from repro_torch.api.probes import ProbeContext, StreamProbe, split_probes
 from repro_torch.core import delivery as dlv
@@ -207,20 +209,18 @@ class Backend:
         one length share their graphs."""
         probes = tuple(probes)
         out_states, datas, walls = [], [], []
-        captures = None
         for i, state in enumerate(states):
-            t0 = time.perf_counter()
-            state, data = self.run(state, n_steps, probes,
-                                   stream=None if stream is None
-                                   else stream[i])
-            self._sync()
-            walls.append(time.perf_counter() - t0)
-            now = sum(cache.misses for cache in self.caches())
-            if captures is not None and now != captures:
-                raise RuntimeError(
-                    f"run_batch: trial {i} ({n_steps} steps) captured a new "
-                    f"graph; trials of one length share the first's")
-            captures = now
+            guard = contextlib.nullcontext() if i == 0 else RecompileGuard(
+                0, caches=self.caches(),
+                what=f"run_batch: trial {i} ({n_steps} steps; trials of "
+                     f"one length share the first's graphs)")
+            with guard:
+                t0 = time.perf_counter()
+                state, data = self.run(state, n_steps, probes,
+                                       stream=None if stream is None
+                                       else stream[i])
+                self._sync()
+                walls.append(time.perf_counter() - t0)
             out_states.append(state)
             datas.append(data)
         return out_states, datas, walls

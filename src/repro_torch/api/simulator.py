@@ -31,6 +31,7 @@ waits for a later slice.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 import warnings
@@ -39,6 +40,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api import probes as probes_mod
 from repro_torch.api import results as results_mod
 from repro_torch.api.backends import (Backend, copy_into, make_backend,
@@ -264,22 +266,35 @@ class Simulator:
         self._require_state("run")
         self._ensure_built()
         pr = self._resolve(probes)
-        _, stream_probes = probes_mod.split_probes(pr)
         self._maybe_presim(presim_ms)
         n_steps = self._steps(t_ms)
         timers0 = dict(self.timers)
-        stream_in = {p.name: self._stream_state.get(p.name)
-                     for p in stream_probes}
         self._sync()
         t0 = time.perf_counter()
-        self._state, data = self.backend.run(self._state, n_steps, pr,
-                                             stream=stream_in)
+        state, data = self.backend.run(self._state, n_steps, pr,
+                                       stream=self._stream_seeds(pr))
         self._sync()
         wall = time.perf_counter() - t0
-        self._steps_done += n_steps
-        self._t_model_ms += n_steps * self.sim_config.dt
         timers = {k: v - timers0.get(k, 0.0)
                   for k, v in self.timers.items()}
+        return self._advance(state, data, n_steps, pr, wall, timers)
+
+    def _stream_seeds(self, probes) -> dict:
+        """The stream probes' carries this session has threaded so far (a
+        backend starts a missing one from ``probe.init``)."""
+        _, stream_probes = probes_mod.split_probes(probes)
+        return {p.name: self._stream_state.get(p.name)
+                for p in stream_probes}
+
+    def _advance(self, state, data: dict, n_steps: int, probes,
+                 wall: float, timers: Optional[dict] = None) -> RunResult:
+        """Take a run's state and data (``Backend.run``'s) into the
+        session: its counters and stream carries advanced, the overflow
+        surfaced; returns the run's result."""
+        _, stream_probes = probes_mod.split_probes(probes)
+        self._state = state
+        self._steps_done += n_steps
+        self._t_model_ms += n_steps * self.sim_config.dt
         streams = {}
         for p in stream_probes:
             carry = data.pop(p.name)
@@ -292,8 +307,9 @@ class Simulator:
         return RunResult(
             data=data, t_model_ms=n_steps * self.sim_config.dt,
             n_steps=n_steps, dt=self.sim_config.dt, wall_s=wall,
-            overflow=overflow, device=self._device_name(), timers=timers,
-            streams=streams, _connectome=self.connectome)
+            overflow=overflow, device=self._device_name(),
+            timers=timers or {}, streams=streams,
+            _connectome=self.connectome)
 
     def run_chunked(self, t_ms: float, chunk_ms: float, *,
                     presim_ms: Optional[float] = None,
@@ -325,19 +341,21 @@ class Simulator:
         done = 0
         while done < total:
             n = min(per_chunk, total - done)
-            captures = self._captures()
+            # chunks 2..N of one length replay the first's graphs
+            guard = (RecompileGuard(0, caches=self.backend.caches(),
+                                    what=f"run_chunked: chunk "
+                                         f"{len(chunks) + 1} ({n} steps, a "
+                                         f"length already run)")
+                     if n in seen else contextlib.nullcontext())
             try:
-                res = self.run(n * self.sim_config.dt, presim_ms=0,
-                               probes=probes)
+                with guard:
+                    res = self.run(n * self.sim_config.dt, presim_ms=0,
+                                   probes=probes)
             except Exception as e:
                 from repro_torch.core.delivery import DeliveryOverflowError
                 if isinstance(e, DeliveryOverflowError) and chunks:
                     e.partial = results_mod.concat(chunks)
                 raise
-            if n in seen and self._captures() != captures:
-                raise RuntimeError(
-                    f"run_chunked: chunk {len(chunks) + 1} ({n} steps, a "
-                    f"length already run) captured a new graph")
             seen.add(n)
             chunks.append(res)
             done += n
@@ -347,9 +365,6 @@ class Simulator:
                     and len(chunks) % checkpoint_every == 0:
                 self.save(checkpoint_dir)
         return results_mod.concat(chunks)
-
-    def _captures(self) -> int:
-        return sum(cache.misses for cache in self.backend.caches())
 
     def _device_name(self) -> str:
         if self.device.type == "cuda":
@@ -437,17 +452,19 @@ class Simulator:
             states, _, _ = self.backend.run_batch(states, self._steps(t_pre),
                                                   ())
         n_steps = self._steps(t_ms)
-        warm = self.backend.is_warm_batch(len(seeds), n_steps, pr)
-        captures = self._captures()
+        # a warm batch that captures is a fault, not a warmup
+        guard = (RecompileGuard(0, caches=self.backend.caches(),
+                                what=f"run_batch({len(seeds)} trials x "
+                                     f"{n_steps} steps) after warmup_batch")
+                 if self.backend.is_warm_batch(len(seeds), n_steps, pr)
+                 else contextlib.nullcontext())
         self._sync()
-        t0 = time.perf_counter()
-        states, datas, walls = self.backend.run_batch(states, n_steps, pr)
-        self._sync()
-        wall = time.perf_counter() - t0
-        if warm and self._captures() != captures:
-            raise RuntimeError(
-                f"run_batch({len(seeds)} trials x {n_steps} steps) captured "
-                f"a graph after warmup_batch")
+        with guard:
+            t0 = time.perf_counter()
+            states, datas, walls = self.backend.run_batch(states, n_steps,
+                                                          pr)
+            self._sync()
+            wall = time.perf_counter() - t0
         host = lambda x: x.cpu().numpy()
         trials = []
         for state, data, trial_wall in zip(states, datas, walls):

@@ -348,10 +348,10 @@ def test_graph_cache_counters():
     assert cache.get_or_build("a", lambda: built.append(1) or "B") == "A"
     assert cache.peek("a") == "A" and "a" in cache and len(cache) == 1
     assert built == [1]
-    assert cache.stats() == {"name": "test", "entries": 1, "hits": 2,
-                             "misses": 1}
+    assert cache.stats() == {"name": "test", "entries": 1, "capacity": None,
+                             "hits": 2, "misses": 1, "evictions": 0}
     cache.clear()
-    assert len(cache) == 0 and cache.misses == 1
+    assert len(cache) == 0 and cache.misses == 1 and cache.evictions == 1
 
 
 def test_graphed_run_needs_the_card():
