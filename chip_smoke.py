@@ -120,6 +120,37 @@ Phases, each on its own line; any failed check exits non-zero:
    untouched twin's; ``[scenarios]``, each of ``examples/scenarios/*.json``
    at its own scale and duration through ``Experiment.run``: every one
    that validates must pass;
+9b. the sharded backend (``sharded_phase``) on the full-scale connectome
+   (``ell``), each sub-phase's launches counted from 0:
+   ``[sharded_localize]``, ``distributed.localize_ell`` on the card for 1
+   and 4 ranks (seconds, peak device bytes, ``k_loc``), and the shards
+   hold every real (source, global target, weight, delay bin) entry of
+   the connectome once (per-source counts and two hash sums);
+   ``[K2_local]``, K2's local-ring form on rank 2 of 4's block against its
+   plain version at 0, 31, 256 and 300 random global spikes (budget 256)
+   and a burst of 5,000 (budget 8,192): ids and overflow exact, the ring
+   within rtol = atol = 1e-5; ``[timing_K2_local]``, its device time at
+   the main path's mean spike count beside its bound (bytes as
+   ``k2_bytes`` counts them), its plain version's and one ``index_add_``'s;
+   ``[sharded_four_dc]``, four shards stepped in one process (the gather a
+   concatenation) from a world of one's state after its 100 ms presim
+   under ``dc()``, 300 steps against the world of one: the registry and
+   the population counts exact, V within 1e-5; ``[sharded_four]``, four
+   shards under the 8 Hz background (each rank's generator seeded by
+   ``distributed.rank_seed``), 100 ms presim and 1,000 ms: overflow 0,
+   rates in band, K1 and K2's local-ring form 4 times a step, ms a step
+   (an eager loop); ``[sharded_one]``, ``Simulator(MicrocircuitConfig(
+   scale, strategy="ell"), backend="sharded")`` without a process group,
+   graphed: warmup, 100 ms presim, a ``--t-sim`` ms run, RTF (beside the
+   main path's from the same call), overflow 0, rates in band, K1 and
+   K2's local-ring form once a step and nothing else; then
+   ``[sharded_one_hold]``, 300 steps from one state and generator state
+   against a fused session with ``kernels="split"``: the registry against
+   its spikes, the population counts, ``t``, overflow, refrac and the
+   generator exact, V, the currents and the ring within 1e-5;
+   ``[sharded_nccl]`` and ``[sharded_nccl_hold]``, the same over an NCCL
+   process group of one (``launch/mesh.init_single_process_group``), the
+   all-gather captured in the graphs, the group destroyed after;
 10. the dense strategy, once the full-scale sessions are freed:
    (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
    reference path (two ``torch.matmul`` GEMVs on the source-major table)
@@ -437,7 +468,11 @@ def profile_window(sim, t_ms: float, ms_step: float) -> dict:
 
 
 def state_tensors(state) -> dict:
-    """A session state's tensors by name, the plastic ones included."""
+    """A session state's tensors by name, the plastic ones included (a
+    sharded session's: its rank's)."""
+    if hasattr(state, "V"):
+        return {name: getattr(state, name) for name in (
+            "V", "I_ex", "I_in", "refrac", "ring", "t", "overflow")}
     sim, ps = (state, None) if hasattr(state, "neuron") else state
     out = {"V": sim.neuron.V, "I_ex": sim.neuron.I_ex,
            "I_in": sim.neuron.I_in, "refrac": sim.neuron.refrac,
@@ -920,6 +955,468 @@ def launched(phase: str, want) -> dict:
         if not counts[name]:
             fail(f"{phase}: {name} was not launched")
     return counts
+
+
+#: [sharded_four] and [K2_local]: the ranks the full-scale network is cut
+#: into, and the rank whose column block K2's local-ring form is held on
+SHARD_WORLD, SHARD_RANK = 4, 2
+#: rows of the tables hashed at once when [sharded_localize] checks that
+#: the shards hold the connectome
+DIGEST_ROWS = 4096
+
+
+def raster_probe(n_steps: int, width: int):
+    """A stream probe of the step's spike vector (``width`` long): on the
+    sharded backend the gathered registry, as an ``[n_steps, width]``
+    raster of a run of ``n_steps`` (the sharded backend records no
+    ``spikes`` probe)."""
+    import torch
+    from repro_torch.api import StreamProbe
+
+    def init(device=None):
+        return {"i": torch.zeros((), dtype=torch.int64, device=device),
+                "rows": torch.zeros((n_steps, width), dtype=torch.bool,
+                                    device=device)}
+
+    def update(carry, spiked):
+        at = torch.remainder(carry["i"], n_steps).view(1)
+        return {"i": carry["i"] + 1,
+                "rows": carry["rows"].index_copy(0, at, spiked.view(1, -1))}
+    return StreamProbe(name="raster", init=init, update=update)
+
+
+def entries_digest(blocks, dev) -> tuple:
+    """What a set of ELL tables holds, order aside: the real entries per
+    source row, and two int64 sums of a hash of each real (source, global
+    target, weight bits, delay bin).  ``blocks`` is ``[(targets, weights,
+    dbins, n_real, offset)]``: a target below ``n_real`` is real, and its
+    global id is ``target + offset``; tables on the host are hashed on
+    ``dev`` ``DIGEST_ROWS`` rows at a time."""
+    import torch
+    per_src, h1, h2 = None, 0, 0
+    for targets, weights, dbins, n_real, offset in blocks:
+        rows = targets.shape[0]
+        counts = torch.zeros(rows, dtype=torch.int64, device=dev)
+        for lo in range(0, rows, DIGEST_ROWS):
+            part = [torch.as_tensor(x[lo:lo + DIGEST_ROWS], device=dev)
+                    for x in (targets, weights, dbins)]
+            tg, w, db = part
+            real = tg < n_real
+            src = (torch.arange(tg.shape[0], device=dev)[:, None]
+                   + lo).expand_as(tg)[real]
+            h = (src * 1_000_003 + tg[real].long() + offset) \
+                * 6364136223846793005 + w[real].view(torch.int32).long()
+            h = (h ^ (h >> 31)) * -7046029254386353131 + db[real].long()
+            h = h ^ (h >> 29)
+            h1 += int(h.sum())
+            h2 += int((h * h + (h >> 7)).sum())
+            counts[lo:lo + tg.shape[0]] = real.sum(1)
+        per_src = counts if per_src is None \
+            else per_src[:rows] + counts[:per_src.shape[0]]
+    wrap = lambda v: (v + 2 ** 63) % 2 ** 64 - 2 ** 63
+    return per_src, wrap(h1), wrap(h2)
+
+
+def split_world_of_one(st, meta: dict, n: int, v_reset: float, gens):
+    """A world of one's state cut into ``meta``'s ranks, in one process:
+    each rank's V and currents slice (the padding at ``v_reset``), its
+    ring columns and a zero dump column, the counters copied; rank r gets
+    ``gens[r]``."""
+    import torch
+    from repro_torch.core.distributed import ShardedSimState
+    n_pad, n_loc, n_dev = meta["n_pad"], meta["n_loc"], meta["n_dev"]
+    pad = lambda x, v: torch.cat([x, torch.full((n_pad - n,), v,
+                                                dtype=x.dtype,
+                                                device=x.device)])
+    V, I_ex, I_in = pad(st.V, v_reset), pad(st.I_ex, 0.0), pad(st.I_in, 0.0)
+    refrac = pad(st.refrac, 0)
+    d_bins = st.ring.shape[0]
+    ring = torch.zeros((d_bins, 2, n_dev, n_loc + 1), dtype=st.ring.dtype,
+                       device=st.ring.device)
+    cols = torch.zeros((d_bins, 2, n_pad), dtype=st.ring.dtype,
+                       device=st.ring.device)
+    cols[:, :, :n] = st.ring[:, :, :n]
+    ring[..., :n_loc] = cols.view(d_bins, 2, n_dev, n_loc)
+    out = []
+    for r in range(n_dev):
+        own = slice(r * n_loc, (r + 1) * n_loc)
+        out.append(ShardedSimState(
+            V=V[own].clone(), I_ex=I_ex[own].clone(), I_in=I_in[own].clone(),
+            refrac=refrac[own].clone(), ring=ring[:, :, r].contiguous(),
+            t=st.t.clone(), generator=gens[r], overflow=st.overflow.clone()))
+    return out
+
+
+def hold_sharded(phase: str, sharded, fused, t_ms: float) -> dict:
+    """A sharded world of one against a ``FusedBackend`` session with
+    ``kernels="split"``, both graphed, ``t_ms`` from one state and
+    generator state (the sharded session's, copied into the fused one).
+    Exact: the spike raster (the gathered registry against the ``spikes``
+    probe), the population counts, ``t``, overflow, refrac and the
+    generator's state; V, the currents and the ring within RING_RTOL /
+    ATOL (K2's float atomics add in no fixed order)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.engine import SimState
+    from repro_torch.core.neuron import NeuronState
+    st = clone_state(sharded.state)
+    fused.state = SimState(NeuronState(st.V, st.I_ex, st.I_in, st.refrac),
+                           st.ring, st.t, sharded._generator, st.overflow)
+    n = sharded._steps(t_ms)
+    p_sh = ("pop_counts", raster_probe(n, sharded.backend.n_registry))
+    p_fu = ("pop_counts", "spikes")
+    sharded.warmup(t_ms, probes=p_sh, include_presim=False)
+    fused.warmup(t_ms, probes=p_fu, include_presim=False)
+    res_s = sharded.run(t_ms, presim_ms=0, probes=p_sh)
+    res_f = fused.run(t_ms, presim_ms=0, probes=p_fu)
+    torch.cuda.synchronize()
+    rows = res_s.streams["raster"]["carry"]["rows"]
+    if not np.array_equal(res_s["pop_counts"], res_f["pop_counts"]):
+        fail(f"{phase}: the population counts differ from the fused split "
+             f"session's")
+    if not np.array_equal(rows[:, :res_f["spikes"].shape[1]],
+                          res_f["spikes"]):
+        fail(f"{phase}: the gathered registry differs from the fused split "
+             f"session's spikes")
+    if not torch.equal(sharded._generator.get_state(),
+                       fused._generator.get_state()):
+        fail(f"{phase}: the generators' states differ after the run")
+    fs = fused.state
+    bits = compare_states(f"{phase} (sharded against fused split)",
+                          sharded.state, fs)
+    return dict(steps=res_s.n_steps, spikes=int(res_f["spikes"].sum()),
+                exact=json.dumps(["spikes", "pop_counts", "t", "overflow",
+                                  "refrac", "generator"]),
+                elements_with_other_bits=json.dumps(bits),
+                sharded_ms_per_step=res_s.wall_s / res_s.n_steps * 1e3,
+                fused_split_ms_per_step=res_f.wall_s / res_f.n_steps * 1e3)
+
+
+def sharded_run(phase: str, sim, t_ms: float) -> dict:
+    """The graphed sharded session's run of ``t_ms`` after its presim,
+    after ``warmup``: RTF, overflow 0, rates in band, K1 and K2's
+    local-ring form once a step and no other step kernel.  Returns the
+    line's fields and the launches."""
+    from repro_torch.kernels import _build
+    pol = sim.sim_config.kernels
+    if not (pol.step == "split" and pol.kernels and pol.deliver == "kernel"
+            and sim.backend.graphed):
+        fail(f"{phase}: resolved to {pol.describe()} (graphed: "
+             f"{sim.backend.graphed}), not the graphed split kernels")
+    t0 = time.perf_counter()
+    sim.warmup(t_ms)
+    capture_s = time.perf_counter() - t0
+    _build.reset_launches()
+    res = sim.run(t_ms)
+    counts = dict(_build.launches)
+    steps = sim._steps(sim.t_presim) + res.n_steps
+    want = {"lif_update": steps, "ell_deliver_local": steps}
+    if any(counts[k] != v for k, v in want.items()) \
+            or any(v for k, v in counts.items() if k not in want):
+        fail(f"{phase}: launched {counts} for {steps} steps (K1 and K2's "
+             f"local-ring form once a step, nothing else)")
+    if res.overflow != 0:
+        fail(f"{phase}: overflow {res.overflow}")
+    rates = res.summary()["rates_hz"]
+    check_rates(rates, phase)
+    return dict(policy=pol.describe(), n_dev=sim.backend.n_dev,
+                collective=sim.backend.world.group is not None,
+                presim_ms=sim.t_presim, run_ms=t_ms, steps=res.n_steps,
+                wall_s=res.wall_s, rtf=res.rtf,
+                ms_per_step=res.wall_s / res.n_steps * 1e3,
+                overflow=res.overflow, capture_s=capture_s,
+                spikes_per_step=float(res["pop_counts"].sum()) / res.n_steps,
+                rates_hz=json.dumps([round(float(r), 3) for r in rates]),
+                launches=json.dumps(counts)), counts
+
+
+def sharded_phase(c, args, card: str, dev, rtf_fused: float,
+                  spikes_main: int, budget_main: int) -> dict:
+    """Phase 9b (the module's docstring), on the full-scale connectome
+    ``c``.  Returns each sub-phase's launch counts and K2's local-ring
+    timings."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import Simulator, probes as PR
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.core import distributed as DD
+    from repro_torch.core import recording
+    from repro_torch.core.engine import SimConfig, resolve_sim_config
+    from repro_torch.core.neuron import Propagators
+    from repro_torch.core.params import NeuronParams
+    from repro_torch.core import stimulus as S
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ell_deliver as K2
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    N, D = c.n_total, c.d_max_bins
+    rng = np.random.default_rng(args.seed)
+    on = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    runs, out = {}, {}
+
+    # [sharded_localize]: 1 and 4 ranks on the card; the shards hold every
+    # real entry of the connectome once
+    want = entries_digest([(c.targets, c.weights, c.dbins, N, 0)], dev)
+    for n_dev in (1, SHARD_WORLD):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tables, meta = DD.localize_ell(c, n_dev, device=dev)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        table_bytes = sum(x.numel() * x.element_size() for x in tables)
+        shards = [DD.shard_of(tables, meta, r) for r in range(n_dev)]
+        del tables
+        n_loc = meta["n_loc"]
+        got = entries_digest([(sh.targets, sh.weights, sh.dbins, n_loc,
+                               r * n_loc) for r, sh in enumerate(shards)],
+                             dev)
+        if not (torch.equal(got[0][:N], want[0]) and not got[0][N:].any()
+                and got[1:] == want[1:]):
+            fail(f"sharded_localize: {n_dev} ranks' tables do not hold the "
+                 f"connectome's entries once each")
+        say("sharded_localize", n_dev=n_dev, n=N, n_pad=meta["n_pad"],
+            n_loc=n_loc, k_loc=meta["k_loc"], seconds=seconds,
+            peak_device_bytes=peak, table_bytes=table_bytes,
+            real_entries=int(want[0].sum()), preserved=True,
+            card=json.dumps(card))
+        out[f"localize_{n_dev}"] = dict(seconds=seconds, peak_bytes=peak,
+                                        table_bytes=table_bytes,
+                                        k_loc=meta["k_loc"])
+        if n_dev == 1:
+            del shards
+    meta4, n_pad, n_loc = meta, meta["n_pad"], meta["n_loc"]
+    pop_of4 = DD.padded_pop_of(c.pop_of, n_pad, len(c.pop_sizes), dev)
+
+    # [K2_local]: K2 on rank SHARD_RANK's block against its plain version
+    sh = shards[SHARD_RANK]
+    tbl = (sh.targets, sh.weights, sh.dbins)
+    t_dev = torch.tensor(1234, dtype=torch.int32, device=dev)
+
+    def ring_loc():
+        r = np.zeros((D, 2, n_loc + 1), np.float32)
+        r[:, 0, :n_loc] = rng.uniform(0, 50, (D, n_loc))
+        r[:, 1, :n_loc] = -rng.uniform(0, 50, (D, n_loc))
+        return on(r)
+
+    def registry(k):
+        s = np.zeros(n_pad, bool)
+        s[rng.choice(N, size=k, replace=False)] = True
+        return on(s)
+
+    max_err = 0.0
+    for k, bud in ((0, 256), (31, 256), (256, 256), (300, 256),
+                   (min(5000, N // 2), 8192)):
+        spk, r0 = registry(k), ring_loc()
+        r_k, ids_k, ovf_k = K2.ell_deliver(r0.clone(), *tbl, spk, t_dev,
+                                           c.n_exc, bud, n_tgt=n_loc)
+        r_p, ids_p, ovf_p = K2.ell_deliver_plain(r0.clone(), *tbl, spk,
+                                                 t_dev, c.n_exc, bud)
+        torch.cuda.synchronize()
+        if not (torch.equal(ids_k, ids_p) and torch.equal(ovf_k, ovf_p)):
+            fail(f"K2_local: ids/overflow differ at {k} spikes")
+        err = float((r_k - r_p).abs().max())
+        if not torch.allclose(r_k, r_p, rtol=RING_RTOL, atol=RING_ATOL):
+            fail(f"K2_local: ring differs at {k} spikes: max |diff| {err}")
+        max_err = max(max_err, err)
+        say("K2_local", rank=SHARD_RANK, n_dev=SHARD_WORLD, spikes=k,
+            budget=bud, overflow=int(ovf_k), ids_exact=True,
+            ring_max_abs_err=err, cells_changed=int((r_k != r0).sum()))
+    # its time at the main path's mean spike count, 64 registries
+    spks = [registry(spikes_main) for _ in range(64)]
+    ids_np = [np.flatnonzero(x.cpu().numpy())[:budget_main] for x in spks]
+    n_entries = float(np.mean([int((sh.targets[torch.as_tensor(
+        i, device=dev)] < n_loc).sum()) for i in ids_np]))
+    ring = ring_loc()
+    k2l = timed(lambda i: K2.ell_deliver(ring, *tbl, spks[i % 64], t_dev,
+                                         c.n_exc, budget_main, n_tgt=n_loc))
+    k2l_plain = timed(lambda i: K2.ell_deliver_plain(
+        ring, *tbl, spks[i % 64], t_dev, c.n_exc, budget_main))
+
+    def flat_rows(ids):                 # index_add_'s inputs for one call
+        ids_t = torch.as_tensor(ids, device=dev)
+        lin = (torch.remainder(1234 + sh.dbins[ids_t].long(), D)
+               * (2 * (n_loc + 1))
+               + (ids_t >= c.n_exc).long()[:, None] * (n_loc + 1)
+               + sh.targets[ids_t].long())
+        return lin.reshape(-1), sh.weights[ids_t].reshape(-1)
+    lib_in = [flat_rows(i) for i in ids_np]
+    k2l_lib = timed(lambda i: ring.view(-1).index_add_(
+        0, *lib_in[i % len(lib_in)]))
+    del lib_in, ring, spks
+    out["k2_local"] = dict(t=k2l, plain=k2l_plain, lib=k2l_lib,
+                           n_bytes=k2_bytes(n_pad, budget_main, n_entries),
+                           n_ops=ENTRY_OPS * n_entries, err=max_err)
+    say("timing_K2_local", rank=SHARD_RANK, n_dev=SHARD_WORLD,
+        spikes=spikes_main, budget=budget_main, real_entries=n_entries,
+        K2_local=json.dumps(k2l), K2_local_plain=json.dumps(k2l_plain),
+        index_add=json.dumps(k2l_lib),
+        bound_us=1e3 * bound(out["k2_local"]["n_bytes"],
+                             out["k2_local"]["n_ops"])[0],
+        card=json.dumps(card))
+
+    # [sharded_four]: four shards stepped in one process, the gather a
+    # concatenation.  (a) under dc() from a world of one's carried state,
+    # 300 steps against the world of one
+    cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                             seed=args.seed)
+    prop = Propagators.make(NeuronParams(), cfg.dt)
+    v_reset = float(prop.V_reset)
+    n_hold = 300
+    one = Simulator(cfg, connectome=c, backend="sharded", device=dev,
+                    stimulus=("dc",), probes=("pop_counts",
+                                              raster_probe(n_hold, N)))
+    # the presim, then one step (unrecorded: the raster's carry must start
+    # with the held steps)
+    one.run(0.1, probes=("pop_counts",))
+    start = one.state
+    shard_cfg = one.sim_config
+    nets = [DD.shard_network(s, pop_of4) for s in shards]
+
+    def drives(stimulus):
+        cfg_s = resolve_sim_config(SimConfig(
+            strategy="ell", stimulus=stimulus), c, dev)
+        whole = S.compile_drive(cfg_s.stimulus, c, cfg_s, NeuronParams(),
+                                "cpu")
+        return [whole.shard(n_pad, r * n_loc, (r + 1) * n_loc, dev)
+                for r in range(SHARD_WORLD)]
+    states = split_world_of_one(start, meta4, N, v_reset,
+                                [None] * SHARD_WORLD)
+    res_one = one.run(n_hold * 0.1)
+    regs = []
+    _build.reset_launches()
+    dc_drives = drives(("dc",))
+    for _ in range(n_hold):
+        states, spk = DD.step_shards(states, nets, prop, shard_cfg,
+                                     w_ext=c.w_ext, n_exc=c.n_exc,
+                                     drives=dc_drives)
+        regs.append(spk)
+    runs["sharded_four_dc"] = launched("sharded_four_dc",
+                                       ("lif_update", "ell_deliver_local"))
+    regs = torch.stack(regs)
+    rows = torch.as_tensor(res_one.streams["raster"]["carry"]["rows"],
+                           device=dev)
+    if not (torch.equal(regs[:, :N], rows) and not bool(regs[:, N:].any())):
+        fail("sharded_four: the four shards' registry differs from the "
+             "world of one's under dc()")
+    pc = PR.pop_counts()
+    counts4 = torch.stack([pc(PR.ProbeContext(None, x, nets[0], 8))
+                           for x in regs]).cpu().numpy()
+    if not np.array_equal(counts4, res_one["pop_counts"]):
+        fail("sharded_four: the population counts differ from the world "
+             "of one's under dc()")
+    V4 = torch.cat([st.V for st in states])[:N]
+    V1 = one.state.V
+    if not torch.allclose(V4, V1, rtol=RING_RTOL, atol=RING_ATOL):
+        fail(f"sharded_four: V beyond 1e-5 of the world of one's: "
+             f"{float((V4 - V1).abs().max())}")
+    ovf = {int(st.overflow) for st in states}
+    if ovf != {int(one.state.overflow)}:
+        fail(f"sharded_four: overflow {ovf}, the world of one's "
+             f"{int(one.state.overflow)}")
+    say("sharded_four_dc", n_dev=SHARD_WORLD, steps=n_hold,
+        spikes=int(regs.sum()), raster_exact=True, pop_counts_exact=True,
+        V_max_abs_err=float((V4 - V1).abs().max()),
+        V_elements_with_other_bits=int((V4.view(torch.int32)
+                                        != V1.view(torch.int32)).sum()))
+    del one, start, states, regs, rows, V4, V1
+
+    # (b) under the 8 Hz background: 100 ms presim, then 1000 ms timed
+    gens = [torch.Generator(device=dev).manual_seed(
+        DD.rank_seed(args.seed, r)) for r in range(SHARD_WORLD)]
+    g0 = torch.Generator(device=dev).manual_seed(args.seed)
+    V0 = (torch.as_tensor(c.v0_mean, device=dev)
+          + torch.as_tensor(c.v0_sd, device=dev) * torch.randn(
+              N, generator=g0, device=dev))
+    states = [DD.init_shard(V0, D, meta4, r, gens[r], v_reset)
+              for r in range(SHARD_WORLD)]
+    bg = drives(None)
+    n_pre, n_run = int(round(cfg.t_presim / cfg.dt)), 10_000
+    for _ in range(n_pre):
+        states, _ = DD.step_shards(states, nets, prop, shard_cfg,
+                                   w_ext=c.w_ext, n_exc=c.n_exc, drives=bg)
+    counts = torch.zeros((n_run, 8), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(n_run):
+        states, spk = DD.step_shards(states, nets, prop, shard_cfg,
+                                     w_ext=c.w_ext, n_exc=c.n_exc, drives=bg)
+        counts[i] = pc(PR.ProbeContext(None, spk, nets[0], 8))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["sharded_four"] = launched("sharded_four",
+                                    ("lif_update", "ell_deliver_local"))
+    want_n = SHARD_WORLD * n_run
+    if runs["sharded_four"]["lif_update"] != want_n \
+            or runs["sharded_four"]["ell_deliver_local"] != want_n:
+        fail(f"sharded_four: launched {runs['sharded_four']} for "
+             f"{SHARD_WORLD} x {n_run} rank steps")
+    overflow = {int(st.overflow) for st in states}
+    if overflow != {0}:
+        fail(f"sharded_four: overflow {overflow}")
+    rates4 = recording.activity_summary(counts.cpu().numpy(), c,
+                                        cfg.dt)["rates_hz"]
+    check_rates(rates4, "sharded_four")
+    out["four_ms_per_step"] = wall / n_run * 1e3
+    say("sharded_four", n_dev=SHARD_WORLD, gather="concatenation",
+        loop="eager", presim_ms=cfg.t_presim, run_ms=n_run * cfg.dt,
+        steps=n_run, wall_s=wall, rtf=wall / (n_run * cfg.dt * 1e-3),
+        ms_per_step=out["four_ms_per_step"], overflow=0,
+        spikes_per_step=float(counts.sum()) / n_run,
+        rates_hz=json.dumps([round(float(r), 3) for r in rates4]),
+        card=json.dumps(card))
+    del states, shards, nets, sh, tbl, counts, bg, dc_drives
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [sharded_one]: a world of one without a process group, graphed, then
+    # held to the fused split session over 300 steps
+    t0 = time.perf_counter()
+    sim = Simulator(cfg, connectome=c, backend="sharded", device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    line, runs["sharded_one"] = sharded_run("sharded_one", sim, args.t_sim)
+    out["one_ms_per_step"] = line["ms_per_step"]
+    fused = Simulator(cfg, connectome=c, device=dev, kernels="split",
+                      probes=("pop_counts", "spikes"))
+    held = hold_sharded("sharded_one", sim, fused, n_hold * 0.1)
+    say("sharded_one", **line, build_s=build_s, fused_rtf_same_call=rtf_fused,
+        card=json.dumps(card))
+    say("sharded_one_hold", **held)
+    del sim
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [sharded_nccl]: the same over an NCCL group of one, its all-gather
+    # captured in the graphs
+    mesh.init_single_process_group("nccl")
+    try:
+        sim = Simulator(cfg, connectome=c, backend="sharded", device=dev)
+        if sim.backend.world.group is None:
+            fail("sharded_nccl: the session's world has no process group")
+        line, runs["sharded_nccl"] = sharded_run("sharded_nccl", sim,
+                                                 args.t_sim)
+        out["nccl_ms_per_step"] = line["ms_per_step"]
+        held = hold_sharded("sharded_nccl", sim, fused, n_hold * 0.1)
+        say("sharded_nccl", **line, backend=dist.get_backend(),
+            fused_rtf_same_call=rtf_fused, card=json.dumps(card))
+        say("sharded_nccl_hold", **held)
+        del sim
+    finally:
+        dist.destroy_process_group()
+    del fused
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("sharded_phase", seconds=f"{time.perf_counter() - t_phase:.1f}")
+    out["launches"] = runs
+    return out
 
 
 def session_api_phase(c, args, card: str, dev) -> dict:
@@ -1841,6 +2338,7 @@ def main() -> None:
     spikes_per_step = max(1, round(float(res["pop_counts"].sum())
                                    / res.n_steps))
     budget_main = sim.sim_config.spike_budget
+    rtf_main = res.rtf
 
     # where a step's time goes: device time by kernel over 200 more steps,
     # against the unprofiled wall time per step
@@ -2201,6 +2699,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     api_runs = session_api_phase(c, args, card, dev)
 
+    # -- 9b. the sharded backend at full scale --------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = sharded_phase(c, args, card, dev, rtf_main, spikes_per_step,
+                            budget_main)
+
     # -- 10. the dense strategy -----------------------------------------------
     del c
     gc.collect()
@@ -2400,6 +2904,8 @@ def main() -> None:
     # -- 12. the session server -----------------------------------------------
     serve_runs = serve_phase(args, card, dev)
 
+    k2l = sharded["k2_local"]
+
     def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err,
             ops_per_s=FP32_OPS_PER_S):
         b_ms, b_by = bound(n_bytes, n_ops, ops_per_s)
@@ -2411,7 +2917,9 @@ def main() -> None:
                    "serve": sum(counts[name]
                                 for counts in serve_runs.values()),
                    **{path: counts[name]
-                      for path, counts in api_runs.items()}}
+                      for path, counts in api_runs.items()},
+                   **{path: counts[name] for path, counts
+                      in sharded["launches"].items()}}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,
@@ -2432,6 +2940,11 @@ def main() -> None:
             "src/repro/kernels/ell_deliver.py:75", k2, k2_plain,
             k2_bytes(N, budget_main, n_entries),
             ENTRY_OPS * n_entries, k2_lib, max_err["ell_deliver"]),
+        row("ell_deliver_local", "lif_deliver.cu",
+            "src/repro/kernels/ell_deliver.py:75", k2l["t"], k2l["plain"],
+            k2l["n_bytes"], k2l["n_ops"], k2l["lib"], k2l["err"])
+        | {"form": f"local ring: rank {SHARD_RANK} of {SHARD_WORLD}'s "
+                   f"block of the full-scale tables"},
         row("lif_deliver", "lif_deliver.cu",
             "src/repro/kernels/lif_deliver.py:199", k3, k3_plain,
             k3_bytes, LIF_OPS * N + ENTRY_OPS * n_entries, None,

@@ -30,6 +30,13 @@ engines (``make_backend``):
   (``:512-637``).  It is the port's eager reference on the card.  Unlike
   the reference's, it also runs a plasticity rule (the split plastic
   loop), so that the graphed plastic loop has an eager twin to be held to.
+* ``sharded`` -- NEST's distribution scheme (``core/distributed``): each
+  rank of a ``torch.distributed`` world (``launch/mesh``; a world of one
+  without a process group) owns a slice of the neurons, their state and
+  their incoming synapses, and the step all-gathers the spike registry
+  between update and delivery (``:638-776``).  It is ``fused``'s graphed
+  loop with that step swapped in: captured in CUDA graphs on a card, the
+  group's all-gather inside the graph, eager on the CPU.
 
 The steps.  With a resolved policy whose ``step == "fused"`` a step is one
 launch of K3 in the rotated order (deliver step ``t - 1``'s spikes, then
@@ -98,6 +105,7 @@ from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api.graph_cache import GraphCache
 from repro_torch.api.probes import ProbeContext, StreamProbe, split_probes
 from repro_torch.core import delivery as dlv
+from repro_torch.core import distributed as DD
 from repro_torch.core import plasticity as PL
 from repro_torch.core import stimulus as stim
 from repro_torch.core.connectivity import Connectome
@@ -109,6 +117,7 @@ from repro_torch.core.engine import (SimConfig, SimState, deliver_phase,
 from repro_torch.core.neuron import Propagators
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels import _build
+from repro_torch.launch import mesh
 
 #: steps in a body graph: replays of fewer steps pay more launches, longer
 #: bodies more capture time and memory, for nothing (PERF.md §6)
@@ -272,9 +281,14 @@ class Backend:
                      if isinstance(v, GraphCache))
 
     def overflow(self, state: Any) -> int:
-        """Cumulative spike-budget overflow of ``state`` (one host read)."""
-        sim = state if isinstance(state, SimState) else state[0]
+        """Cumulative spike-budget overflow of ``state`` (one host read); a
+        plastic session's pair holds it in its ``SimState``."""
+        sim = state if hasattr(state, "overflow") else state[0]
         return int(sim.overflow.item())
+
+    #: whether ``Simulator.save`` / ``restore`` can write and read this
+    #: backend's state
+    checkpoints: bool = True
 
 
 class _LoopBackend(Backend):
@@ -313,6 +327,7 @@ class _LoopBackend(Backend):
         self._step = self._fused_step if self.fused else self._split_step
         # the steps that differ from the steady one at the start of a run
         self.head = 0 if self.bound is None else (2 if self.fused else 1)
+        self.n_registry = c.n_total        # a step's spike vector
 
     @property
     def fused(self) -> bool:
@@ -548,6 +563,9 @@ class FusedBackend(_LoopBackend):
         """Build the tables; the graphs and the static buffers of an
         earlier build go (they read the old tables)."""
         super().build(c, cfg, device)
+        self._reset_graphs()
+
+    def _reset_graphs(self) -> None:
         self.graphs.clear()
         self._io: Optional[Carry] = None     # the static buffers
         self._resident: tuple = ()           # weakrefs: the resident state
@@ -633,7 +651,7 @@ class FusedBackend(_LoopBackend):
         dev = self.device
         # every probe once, eagerly, on the static state: the outputs'
         # shapes, and whatever a probe builds at its first call
-        spk0 = torch.zeros(self.c.n_total, dtype=torch.bool, device=dev)
+        spk0 = torch.zeros(self.n_registry, dtype=torch.bool, device=dev)
         carry0 = Carry(io.sim, io.ps, None,
                        tuple(p.init(dev) for p in stream_probes))
         _, vals = self._record(carry0, spk0, step_probes, stream_probes)
@@ -748,14 +766,128 @@ class InstrumentedBackend(_LoopBackend):
                                                  stream_probes)
 
 
+class ShardedBackend(FusedBackend):
+    """NEST's distribution scheme (``repro/api/backends.py:638-776``): this
+    rank's shard of the network, stepped by ``distributed.sharded_step``
+    in ``FusedBackend``'s loop (graphed on a card, the process group's
+    all-gather captured inside the graphs; eager on the CPU).
+
+    The connectome is regrouped by target-owning rank through the
+    strategy's ``localize`` (``event`` and ``ell``); a strategy without one
+    (``dense``) is refused at build time, and so are a non-separable drive
+    and plasticity.  The world is the default process group's
+    (``launch/mesh.make_world``), or a world of one without one;
+    ``n_devices`` larger than it raises.  The state is this rank's
+    ``ShardedSimState``.  Probes: ``pop_counts``, ``total_counts`` and
+    stream probes that take the spike vector, all fed the gathered
+    registry, so every rank records the same values.
+
+    Generators.  A world of one draws from the session's generator exactly
+    as the fused backend's split step does (its initial V, then each step's
+    drive), so the two give the same spikes.  In a world of more, every
+    rank draws the world's initial V from the session's generator (the
+    same V on every rank as in a world of one), then seeds that generator
+    with ``distributed.rank_seed(seed, rank)``, ``seed`` being the
+    generator's initial seed (the session's), and draws its slice's drive
+    from it.
+    """
+
+    name = "sharded"
+    _SUPPORTED = frozenset({"pop_counts", "total_counts"})
+    checkpoints = False
+
+    def __init__(self, n_devices: Optional[int] = None,
+                 graph_steps: int = GRAPH_STEPS):
+        super().__init__(plasticity=None, graph_steps=graph_steps)
+        self.n_devices = n_devices
+
+    def _normalize_cfg(self, cfg):
+        return _force_split_step(cfg)
+
+    def supports_probe(self, probe) -> bool:
+        if isinstance(probe, StreamProbe):
+            # fed the gathered spike vector only; ctx-reading stream probes
+            # are the fused backend's
+            return probe.needs == "spiked"
+        return probe.name in self._SUPPORTED
+
+    def build(self, c, cfg, device) -> None:
+        """Localise the tables on ``device`` and keep this rank's block; no
+        whole-network table is kept."""
+        self.builds += 1
+        self.device = torch.device(device)
+        cfg = self._normalize_cfg(resolve_sim_config(cfg, c, self.device))
+        strategy = dlv.get_strategy(cfg.strategy)
+        if not strategy.supports_sharding:
+            raise ValueError(
+                f"sharded backend needs a delivery strategy with a shard "
+                f"transform (ELL layout); {cfg.strategy!r} provides none -- "
+                f"use strategy='event' or 'ell'")
+        if cfg.state_dtype != torch.float32:
+            raise ValueError(f"the sharded backend runs float32 state, got "
+                             f"{cfg.state_dtype}")
+        neuron = NeuronParams()
+        drive = stim.compile_drive(cfg.stimulus, c, cfg, neuron, "cpu")
+        if not drive.separable:
+            raise NotImplementedError(
+                "the sharded backend supports separable stimuli only "
+                "(basis x time-gate form, as all built-ins are); run "
+                "general custom stimuli on the fused backend")
+        self.world = mesh.make_world(self.n_devices)
+        self.n_dev, rank = self.world.size, self.world.rank
+        tables, self.meta = strategy.localize(c, self.n_dev,
+                                              device=self.device)
+        shard = DD.shard_of(tables, self.meta, rank)
+        del tables
+        n_pad, n_loc = self.meta["n_pad"], self.meta["n_loc"]
+        self.c, self.cfg = c, cfg
+        self.prop = Propagators.make(neuron, cfg.dt)
+        self.n_pops = len(c.pop_sizes)
+        self.net = DD.shard_network(shard, DD.padded_pop_of(
+            c.pop_of, n_pad, self.n_pops, self.device))
+        self.drive = drive.shard(n_pad, rank * n_loc, (rank + 1) * n_loc,
+                                 self.device)
+        as_t = lambda a: torch.as_tensor(a, device=self.device)
+        self._v0 = (as_t(c.v0_mean), as_t(c.v0_sd))
+        self.strategy, self.bound, self.head = strategy, None, 0
+        self.n_registry = n_pad
+        self._step = self._sharded_step
+        self._reset_graphs()
+
+    def init(self, generator: torch.Generator) -> DD.ShardedSimState:
+        """This rank's fresh shard: the world's V drawn as the fused
+        backend draws it, padded with the reset potential; then, in a world
+        of more than one, ``generator`` seeded for this rank."""
+        mean, sd = self._v0
+        V = mean + sd * torch.randn(mean.shape[0], generator=generator,
+                                    device=self.device, dtype=torch.float32)
+        if self.n_dev > 1:
+            generator.manual_seed(DD.rank_seed(generator.initial_seed(),
+                                               self.world.rank))
+        return DD.init_shard(V, self.c.d_max_bins, self.meta,
+                             self.world.rank, generator,
+                             float(self.prop.V_reset))
+
+    def _sharded_step(self, carry: Carry, i: int, tick=None):
+        """One step of this rank: update, gather, delivery.  ``tick`` marks
+        nothing (the phases are the graph's)."""
+        st, spiked = DD.sharded_step(
+            carry.sim, self.net, self.prop, self.cfg, w_ext=self.c.w_ext,
+            n_exc=self.c.n_exc, drive=self.drive, gather=self.world.gather)
+        return carry._replace(sim=st), spiked
+
+
 REGISTRY = {
     "fused": FusedBackend,
     "instrumented": InstrumentedBackend,
+    "sharded": ShardedBackend,
 }
 
 
-def make_backend(spec, *, plasticity=None) -> Backend:
-    """Resolve a backend name or instance, with its plasticity rule."""
+def make_backend(spec, *, plasticity=None,
+                 n_devices: Optional[int] = None) -> Backend:
+    """Resolve a backend name or instance, with its plasticity rule, and
+    ``n_devices`` for the sharded backend (the world's size when None)."""
     if isinstance(spec, Backend):
         if plasticity is not None \
                 and getattr(spec, "plasticity", None) is None:
@@ -765,4 +897,10 @@ def make_backend(spec, *, plasticity=None) -> Backend:
     if spec not in REGISTRY:
         raise ValueError(f"unknown backend {spec!r}; "
                          f"available: {sorted(REGISTRY)}")
+    if spec == "sharded":
+        if plasticity is not None:
+            raise NotImplementedError(f"plasticity (stdp) is only composed "
+                                      f"into the fused and instrumented "
+                                      f"backends, not {spec!r}")
+        return ShardedBackend(n_devices=n_devices)
     return REGISTRY[spec](plasticity=plasticity)

@@ -186,7 +186,10 @@ class Experiment:
         from repro_torch.api.simulator import Simulator, session_device
         from repro_torch.core.connectivity import build_connectome
 
-        sim_kwargs["device"] = session_device(sim_kwargs.get("device"))
+        sim_kwargs["device"] = session_device(
+            sim_kwargs.get("device"),
+            sharded=(self.backend if backend is None else backend)
+            == "sharded")
         model = self.model
         if connectome is None:
             connectome = build_connectome(

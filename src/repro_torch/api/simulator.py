@@ -26,8 +26,12 @@ carrying on on the CPU.  The backend is ``"fused"`` (on a card its loop is
 captured in CUDA graphs) or ``"instrumented"`` (the eager phase-split loop
 with per-phase timers), or a backend instance, which sessions of one
 network share (built once, its graphs captured once; each session's state
-stays its own); see ``repro_torch.api.backends``.  The sharded backend
-waits for a later slice.
+stays its own); see ``repro_torch.api.backends``.  ``"sharded"`` is
+NEST's distribution scheme over the default ``torch.distributed`` process
+group (a world of one without one; ``n_devices=`` must not exceed the
+world): the session's state is this rank's shard, and in a group on a CUDA
+machine the session runs on the rank's card unless a device is given
+(``repro_torch.launch.mesh``).  A sharded session saves no checkpoint.
 """
 from __future__ import annotations
 
@@ -50,11 +54,16 @@ from repro_torch.core import stimulus as stimulus_mod
 from repro_torch.core.connectivity import Connectome, build_connectome
 from repro_torch.core.engine import SimConfig
 from repro_torch.core.plasticity import PlasticState
+from repro_torch.launch import mesh
 
 
-def session_device(device=None) -> torch.device:
-    """``device``, or ``cuda`` when None -- which raises without CUDA.  A
-    card is named with its index, as the session's tensors report it."""
+def session_device(device=None, sharded: bool = False) -> torch.device:
+    """``device``, or ``cuda`` when None -- which raises without CUDA; for
+    a ``sharded`` session in a process group, this rank's card
+    (``launch.mesh.rank_device``).  A card is named with its index, as the
+    session's tensors report it."""
+    if device is None and sharded:
+        return mesh.rank_device(session_device())
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -72,7 +81,8 @@ class Simulator:
     """A simulation session: one network, one backend, many runs.
 
     ``config`` is a model config (``MicrocircuitConfig``); ``connectome``
-    skips the build.  ``backend`` is ``"fused"``, ``"instrumented"`` or a
+    skips the build.  ``backend`` is ``"fused"``, ``"instrumented"``,
+    ``"sharded"`` (with ``n_devices``, the world's size when None) or a
     :class:`~repro_torch.api.backends.Backend`.  ``plasticity`` is a rule
     (a registry kind name such as ``"pair_stdp"``, a spec dict or a
     ``PlasticityRule``); the session's state is then the pair
@@ -87,8 +97,9 @@ class Simulator:
     def __init__(self, config, *, connectome: Optional[Connectome] = None,
                  backend="fused", probes: Sequence = ("pop_counts",),
                  device=None, plasticity=None, stimulus=None,
-                 key: Optional[int] = None, **overrides):
-        self.device = session_device(device)
+                 key: Optional[int] = None,
+                 n_devices: Optional[int] = None, **overrides):
+        self.device = session_device(device, sharded=backend == "sharded")
         self.config = config
         seed = int(config.seed)
         if connectome is None:
@@ -107,7 +118,8 @@ class Simulator:
             sim_config = dataclasses.replace(
                 sim_config, stimulus=stimulus_mod.resolve_timeline(stimulus))
         self.t_presim = float(config.t_presim)
-        self.backend: Backend = make_backend(backend, plasticity=plasticity)
+        self.backend: Backend = make_backend(backend, plasticity=plasticity,
+                                             n_devices=n_devices)
         self.plasticity = self.backend.plasticity
         # a backend handed over already built for this network is shared:
         # its tables and captured graphs serve every session on it
@@ -158,7 +170,8 @@ class Simulator:
     @property
     def state(self):
         """The ``SimState``, or ``(SimState, PlasticState)`` in a plastic
-        session."""
+        session, or this rank's ``ShardedSimState`` on the sharded
+        backend."""
         return self._state
 
     @state.setter
@@ -495,10 +508,17 @@ class Simulator:
             "t_model_ms": np.asarray(self._t_model_ms, np.float64),
         }
 
+    def _require_checkpoints(self, what: str) -> None:
+        if not self.backend.checkpoints:
+            raise NotImplementedError(
+                f"cannot {what}: backend {self.backend.name!r} writes no "
+                f"checkpoint (its state is one rank's shard)")
+
     def save(self, directory: str, keep: int = 3) -> str:
         """Write the session (its state, generator and counters) to
         ``directory/step_<steps done>`` for :meth:`restore`; returns the
         path."""
+        self._require_checkpoints("save")
         self._require_state("save")
         from repro_torch.checkpoint import checkpointer
         return checkpointer.save(self._package(), directory,
@@ -532,6 +552,7 @@ class Simulator:
         raises ``CheckpointMismatchError`` naming the leaf.  The stream
         probes' statistics restart empty here (they are not saved): they
         then cover what runs after the restore, never a stale window."""
+        self._require_checkpoints("restore")
         self._require_state("restore (use resume() on a suspended session)")
         self._ensure_built()
         from repro_torch.checkpoint import checkpointer

@@ -12,6 +12,13 @@ The JAX PRNG key has no counterpart: the port's state gets ``generator``.
 ``t`` is the 0-d int32 step counter both ways (a tensor on the device in
 the port, as the reference's is a traced scalar).
 
+The sharded side (``sharded_to_torch`` / ``sharded_to_numpy``) carries the
+JAX package's global ``ShardedTables`` and ``ShardedSimState`` under
+``SHARDED_KEYS`` (tables ``[N_pad+1, n_dev * k_loc]``, ``k_ext``, ``i_dc``
+and the neuron state ``[N_pad]``, the ring ``[D, 2, N_pad + n_dev]``: each
+rank's ``n_loc + 1`` columns end to end, ``overflow`` one per rank) into
+one rank's shard of the port's, and the shards of all ranks back.
+
 The LM layers' weights (``layer_params_to_torch`` /
 ``layer_params_to_numpy``) are a nested dict of arrays, the value tree
 that ``repro.models.layers.split_tree`` gives (as numpy), carried into
@@ -33,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.delivery import EventTables
+from repro_torch.core.distributed import ShardedSimState, ShardedTables
 from repro_torch.core.engine import Network, SimState
 from repro_torch.core.neuron import NeuronState
 from repro_torch.core.plasticity import PlasticState, PlasticTables
@@ -85,6 +93,73 @@ def to_numpy(net: Network, state: SimState) -> Dict[str, np.ndarray]:
         "t": host(state.t).astype(np.int32).reshape(()),
         "overflow": host(state.overflow),
     }
+
+
+SHARDED_KEYS = ("targets", "weights", "dbins", "k_ext", "i_dc", "V",
+                "I_ex", "I_in", "refrac", "ring", "t", "overflow")
+
+
+def sharded_to_torch(arrays: Dict[str, np.ndarray], rank: int, n_dev: int,
+                     device, generator: Optional[torch.Generator] = None
+                     ) -> Tuple[ShardedTables, ShardedSimState]:
+    """The reference's global sharded arrays (``SHARDED_KEYS``) -> rank
+    ``rank``'s ``(ShardedTables, ShardedSimState)`` of a world of
+    ``n_dev``, on ``device``; every tensor is a copy."""
+    missing = [k for k in SHARDED_KEYS if k not in arrays]
+    if missing:
+        raise KeyError(f"missing arrays {missing}")
+    n_pad = np.asarray(arrays["V"]).shape[0]
+    n_loc, cols = n_pad // n_dev, np.asarray(arrays["targets"]).shape[1]
+    if n_loc * n_dev != n_pad or cols % n_dev or not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} of {n_dev}: N_pad={n_pad} and "
+                         f"{cols} table columns do not split evenly")
+    k_loc, lo = cols // n_dev, rank * n_loc
+
+    def t(name, dtype, part=None):
+        a = np.asarray(arrays[name], dtype=dtype)
+        a = a if part is None else a[part]
+        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    block = (slice(None), slice(rank * k_loc, (rank + 1) * k_loc))
+    own = slice(lo, lo + n_loc)
+    ring = (slice(None), slice(None),
+            slice(rank * (n_loc + 1), (rank + 1) * (n_loc + 1)))
+    overflow = np.asarray(arrays["overflow"], np.int32).reshape(-1)
+    tables = ShardedTables(
+        targets=t("targets", np.int32, block),
+        weights=t("weights", np.float32, block),
+        dbins=t("dbins", np.int32, block), k_ext=t("k_ext", np.float32, own),
+        i_dc=t("i_dc", np.float32, own))
+    state = ShardedSimState(
+        V=t("V", np.float32, own), I_ex=t("I_ex", np.float32, own),
+        I_in=t("I_in", np.float32, own), refrac=t("refrac", np.int32, own),
+        ring=t("ring", np.float32, ring), t=t("t", np.int32).reshape(()),
+        generator=generator,
+        overflow=torch.tensor(int(overflow[rank if overflow.size > 1
+                                           else 0]),
+                              dtype=torch.int32, device=device))
+    return tables, state
+
+
+def sharded_to_numpy(shards) -> Dict[str, np.ndarray]:
+    """Every rank's ``(ShardedTables, ShardedSimState)``, rank 0 first,
+    -> the reference's global layout under ``SHARDED_KEYS`` (a pair whose
+    tables are None gives the state's keys only)."""
+    host = lambda x: x.detach().cpu().numpy()
+    tables = [tb for tb, _ in shards]
+    states = [st for _, st in shards]
+    cat = lambda xs, axis=0: np.concatenate([host(x) for x in xs], axis)
+    out = {name: cat([getattr(st, name) for st in states])
+           for name in ("V", "I_ex", "I_in", "refrac")}
+    out["ring"] = cat([st.ring for st in states], 2)
+    out["t"] = host(states[0].t).astype(np.int32).reshape(())
+    out["overflow"] = np.stack([host(st.overflow).reshape(())
+                                for st in states]).astype(np.int32)
+    if all(tb is not None for tb in tables):
+        for name in ("targets", "weights", "dbins"):
+            out[name] = cat([getattr(tb, name) for tb in tables], 1)
+        out["k_ext"] = cat([tb.k_ext for tb in tables])
+        out["i_dc"] = cat([tb.i_dc for tb in tables])
+    return out
 
 
 PLASTIC_KEYS = ("weights", "x_pre", "x_post", "out_targets", "out_dbins",

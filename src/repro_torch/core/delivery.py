@@ -22,6 +22,9 @@ out-adjacency with one sentinel source row at index N.
 
 ``deliver_ids`` also returns the step's compacted ids, which the plastic
 path hands to the STDP update instead of compacting the spikes again.
+``localize`` is a strategy's shard transform for the sharded backend:
+``event`` and ``ell`` regroup their ELL tables by target-owning rank
+(``distributed.localize_ell``); ``dense`` has none and raises.
 The phase ``t`` every strategy takes is the step counter, a 0-d int32
 tensor on the ring's device; nothing reads it back to the host.
 """
@@ -150,6 +153,18 @@ class DeliveryStrategy:
     def prepare(self, c, cfg, device) -> Any:
         raise NotImplementedError
 
+    def localize(self, c, n_dev: int, k_loc: Optional[int] = None,
+                 device="cpu"):
+        """Shard transform for the sharded backend: regroup the tables by
+        target-owning rank.  Strategies without a distributed layout
+        raise ``NotImplementedError``."""
+        raise NotImplementedError(
+            f"delivery strategy {self.name!r} has no shard transform")
+
+    @property
+    def supports_sharding(self) -> bool:
+        return False
+
     def live_tables(self, tables: Any, weights: torch.Tensor) -> Any:
         """``tables`` with the live plastic ``weights`` (the strategy's own
         ``[N+1, K]`` layout, kept padded: the reference pads them every
@@ -211,6 +226,14 @@ class EventDelivery(DeliveryStrategy):
     def prepare(self, c, cfg, device) -> EventTables:
         return make_event_tables(c.targets, c.weights, c.dbins, device)
 
+    def localize(self, c, n_dev, k_loc=None, device="cpu"):
+        from repro_torch.core.distributed import localize_ell
+        return localize_ell(c, n_dev, k_loc, device=device)
+
+    @property
+    def supports_sharding(self) -> bool:
+        return True
+
     def deliver_ids(self, ring, tables, spiked, t, n_exc, cfg):
         return ell_deliver_plain(ring, tables.targets, tables.weights,
                                  tables.dbins, spiked, t, n_exc,
@@ -232,6 +255,16 @@ class EllDelivery(DeliveryStrategy):
         """The reference's pad to ``block_k`` (delivery.py:404-417)."""
         return make_event_tables(c.targets, c.weights, c.dbins, device,
                                  k_pad=self.k_pad(c.targets.shape[1]))
+
+    def localize(self, c, n_dev, k_loc=None, device="cpu"):
+        # the sharded step delivers through the localized columns by K2's
+        # local-ring form, whatever the row pad
+        from repro_torch.core.distributed import localize_ell
+        return localize_ell(c, n_dev, k_loc, device=device)
+
+    @property
+    def supports_sharding(self) -> bool:
+        return True
 
     def deliver_ids(self, ring, tables, spiked, t, n_exc, cfg):
         pol = kpol.policy_of(cfg)

@@ -14,8 +14,11 @@ step, and the four built-ins::
                                       populations over a window
     thalamic_pulses(...)              the PD-2014 thalamic pulses into L4/L6
 
-``Drive.plan`` and ``padded_bases``, which only the reference's sharded
-engine uses, wait for the sharded slice.
+``Drive.plan`` and ``padded_bases`` give a separable timeline's structure
+over a world padded to ``n_pad`` neurons, as the reference's sharded engine
+takes it; ``Drive.shard`` is the drive of one rank's slice of that world
+(``repro_torch.core.distributed``), which draws over the slice exactly as
+the whole drive draws over all neurons.
 
 A gate is a tensor function of the step counter ``t`` (the engine's 0-d
 int32 tensor on the session's device), as the reference's are functions of
@@ -123,6 +126,58 @@ class Drive:
             if e_c is not None:
                 ext_in = e_c if ext_in is None else ext_in + e_c
         return I_ext, ext_in
+
+    @property
+    def separable(self) -> bool:
+        """True when every stimulus is in ``basis x gate`` form (all the
+        built-ins are)."""
+        return all(s.fn is None for s in self.compiled)
+
+    def plan(self):
+        """(spike, current) lists of ``(basis [N] f32, gate)`` pairs -- the
+        structure the sharded engine shards over ranks.  Raises for
+        non-separable timelines."""
+        if not self.separable:
+            bad = [s for s in self.compiled if s.fn is not None]
+            raise NotImplementedError(
+                f"{len(bad)} stimulus(es) compile to a general fn (not a "
+                f"basis x gate form); the sharded engine supports "
+                f"separable stimuli only -- run them on the fused or "
+                f"instrumented backend")
+        spk = [(s.basis, s.gate) for s in self.compiled
+               if s.channel == "spikes"]
+        cur = [(s.basis, s.gate) for s in self.compiled
+               if s.channel == "current"]
+        return spk, cur
+
+    def padded_bases(self, n_pad: int):
+        """Stacked basis arrays zero-padded to ``n_pad`` neurons:
+        ``(spike_bases [Ks, n_pad], cur_bases [Kc, n_pad])`` float32 numpy
+        (padding neurons receive no drive)."""
+        spk, cur = self.plan()
+
+        def stack(rows):
+            out = np.zeros((len(rows), n_pad), np.float32)
+            for i, (basis, _) in enumerate(rows):
+                out[i, :basis.shape[0]] = basis
+            return out
+        return stack(spk), stack(cur)
+
+    def shard(self, n_pad: int, lo: int, hi: int, device) -> "Drive":
+        """The drive of neurons ``[lo, hi)`` of the world padded to
+        ``n_pad``: every stimulus in timeline order with its gate, its basis
+        zero-padded and sliced, on ``device``.  Called with a generator it
+        draws ``torch.poisson`` over the slice, stimulus by stimulus, as
+        the whole drive does over all neurons.  Raises for non-separable
+        timelines."""
+        self.plan()
+        bases = []
+        for s in self.compiled:
+            padded = np.zeros(n_pad, np.float32)
+            padded[:s.basis.shape[0]] = s.basis
+            bases.append(torch.as_tensor(padded[lo:hi].copy(),
+                                         device=device))
+        return Drive(compiled=self.compiled, bases=tuple(bases))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -13,6 +13,12 @@
 // spikes at ring phase t_prev, then integrate step t_prev + 1 against ring
 // slot (t_prev + 1) % D and consume that slot; K2 stops after the delivery
 // (its t_prev is the step t it delivers at).
+// The ring has n_tgt + 1 columns: targets 0..n_tgt-1 and the dump column
+// n_tgt, which the padding entries name.  K3 and K4 take n_tgt == n (the
+// ring of the neurons they integrate); K2's local-ring form, the sharded
+// step's delivery, compacts a spike vector of all n neurons of the world
+// through the rows of its rank's column block, whose targets are that
+// rank's n_tgt neurons (repro_torch/core/distributed.py).
 // The step counter t is read from device memory, the session's 0-d int32
 // counter: K3 and K4 take t_prev = *t - 1, K2 t_prev = *t.  No form writes
 // the counter; the engine advances it with a separate op after the launch,
@@ -109,19 +115,19 @@ constexpr unsigned kFull = 0xffffffffu;
 enum class Form { kStep, kPlasticStep, kDeliver };
 
 struct StepConst {                    // the same for every step of a session
-  const int* targets;                 // [N+1, k_pad], sentinel target N
+  const int* targets;                 // [N+1, k_pad], sentinel n_tgt
   float* weights;                     // [N+1, k_pad]; K4: the live table
   const int* dbins;                   // [N+1, k_pad], >= 1
   const unsigned char* pmask;         // K4: [N+1, k_pad] plastic entries
   unsigned long long* ws;             // [1 + grid] workspace (see above)
-  int k_pad, n, n_exc, d_bins, budget, grid;
+  int k_pad, n, n_tgt, n_exc, d_bins, budget, grid;
   LifProp p;
   float dep_coef, decay_p, decay_m;   // K4's pair-STDP immediates
 };
 
 struct StepIO {                       // this step's tensors
   const unsigned char* spiked_prev;   // [N]
-  float* ring;                        // [D, 2, N+1], updated in place
+  float* ring;                        // [D, 2, n_tgt+1], in place
   const float* V;
   const float* I_ex;
   const float* I_in;
@@ -259,7 +265,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   __shared__ unsigned long long launch_no;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int b = blockIdx.x, G = gridDim.x;
-  const int n = k.n, n_cols = n + 1;
+  const int n = k.n, n_tgt = k.n_tgt, n_cols = n_tgt + 1;
   unsigned long long* words = k.ws + 1;
   cg::grid_group grid = cg::this_grid();
   const int g = b * kBlock + threadIdx.x, threads = G * kBlock;
@@ -319,7 +325,7 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int e = e0 + u * threads;
-      tg[u] = n;
+      tg[u] = n_tgt;
       pm[u] = false;
       if (e < n_entries) {
         const int s = e / k.k_pad;
@@ -335,11 +341,11 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
     if constexpr (kPlastic) {
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u)
-        if (pm[u] && tg[u] < n) xq[u] = io.x_post[tg[u]];
+        if (pm[u] && tg[u] < n_tgt) xq[u] = io.x_post[tg[u]];
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (tg[u] >= n) continue;       // padding (weight 0), or no entry
+      if (tg[u] >= n_tgt) continue;   // padding (weight 0), or no entry
       const int slot = (t_prev + bin[u]) % k.d_bins;
       atomicAdd(io.ring + (static_cast<size_t>(slot) * 2 + ch[u]) * n_cols +
                     tg[u],
@@ -355,6 +361,8 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   stamp<kStamps, kStamped>(io.stamps, 6);
 
   // 3. LIF update against the just-delivered slot, which it then consumes
+  // (K3 and K4: n_tgt == n, so the ring's columns are the neurons and the
+  // dump column)
   const int slot = (t_prev + 1) % k.d_bins;
   float* row_ex = io.ring + static_cast<size_t>(slot) * 2 * n_cols;
   float* row_in = row_ex + n_cols;
@@ -488,8 +496,8 @@ EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
 
 // K2: phases 1 and 2 alone, on the workspace that K3 and K4 use.  `k` is a
 // pack of the session's tables, sizes and workspace (its propagators and
-// pmask unused); delivers `spiked` at phase *t into `ring`, writes the ids
-// and the overflow.
+// pmask unused); delivers `spiked` ([n]) at phase *t into `ring` ([D, 2,
+// n_tgt + 1]), writes the ids and the overflow.
 #define DELIVER_IO                                                          \
   StepIO io{spiked,  ring,    nullptr, nullptr, nullptr, nullptr, nullptr,  \
             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ids,      \

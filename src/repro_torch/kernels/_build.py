@@ -9,7 +9,9 @@ rebuilt, never reused stale.  All sources are compiled together, one
 ``nvcc`` process each, started at once.
 
 ``launches`` holds one plain integer per kernel (``KERNELS``; K2, K3 and K4
-are three forms of one template in one library, ``lif_deliver``, K5,
+are three forms of one template in one library, ``lif_deliver``, and K2's
+local-ring form, the sharded step's delivery, is counted apart as
+``ell_deliver_local``; K5,
 ``gated_spike_matvec``, lives in ``spike_deliver``, and K6,
 ``flash_attention``, is two kernels: bfloat16 on the tensor cores in
 ``flash_attention_sm90``, float32 on the CUDA cores in
@@ -44,6 +46,7 @@ SOURCES = {
 }
 #: kernel name -> the libraries that hold it
 KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("lif_deliver",),
+           "ell_deliver_local": ("lif_deliver",),
            "lif_deliver": ("lif_deliver",),
            "lif_deliver_plastic": ("lif_deliver",),
            "stdp_update": ("stdp_update",),

@@ -12,11 +12,16 @@ with ``ch = sid >= n_exc`` (Dale's law).  ``t`` is the step counter, a 0-d
 int32 tensor on the ring's device, which the kernel reads there.
 
 The ring is updated **in place** (the port keeps one 28 MB ring per
-session instead of a new one per step).  The plain version adds in the
-reference's ``deliver_event`` order (s-major, k-minor) through
-``index_add_``; the CUDA kernel adds with float atomics in no fixed order,
-so on the card the ring agrees with the plain version to a tolerance,
-while ids and overflow are exact.  Neither reads anything back to the host.
+session instead of a new one per step).  It has a column per target and a
+trailing dump column, ``[D, 2, n_tgt + 1]``: ``n_tgt`` is ``N`` on one
+device, and in the local-ring form (``n_tgt=``, the sharded step's
+delivery, ``core/distributed``) the rank's neuron count, while the spike
+vector and the tables' rows still span the whole world's ``N``.  The
+plain version adds in the reference's ``deliver_event`` order (s-major,
+k-minor) through ``index_add_``; the CUDA kernel adds with float atomics
+in no fixed order, so on the card the ring agrees with the plain version
+to a tolerance, while ids and overflow are exact.  Neither reads
+anything back to the host.
 
 On the card a call is one cooperative launch (``lif_deliver.deliver``):
 the ordered compaction by decoupled look-back over the workspace that K3
@@ -34,16 +39,20 @@ PHASES = K3.PHASES[:5]
 
 
 def ell_deliver(ring, targets, weights, dbins, spiked, t, n_exc: int,
-                budget: int, *, stamps=None):
-    """Returns ``(ring, ids, overflow)``; ``ring`` [D, 2, N+1] f32 is
-    updated in place, tables are ``[N+1, K_pad]`` with sentinel row N.
+                budget: int, *, n_tgt=None, stamps=None):
+    """Returns ``(ring, ids, overflow)``; ``ring`` [D, 2, n_tgt+1] f32 is
+    updated in place, tables are ``[N+1, K_pad]`` with sentinel row N and
+    target ``n_tgt`` the dump column; ``n_tgt`` is ``N`` unless given (the
+    local-ring form, whose launches count as ``ell_deliver_local``).
     ``stamps`` (``lif_deliver.stamps_buffer``, on the card only) selects
     the stamped kernel, for a phase table."""
     if ring.device.type == "cpu":
         if stamps is not None:
             raise ValueError("ell_deliver: stamps are the kernel's, on the "
                              "card")
+        n = spiked.shape[0]
+        K3.check_ring("ell_deliver", ring, n, n if n_tgt is None else n_tgt)
         return ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
                                  n_exc, budget)
     return K3.deliver(ring, targets, weights, dbins, spiked, t, n_exc=n_exc,
-                      budget=budget, stamps=stamps)
+                      budget=budget, n_tgt=n_tgt, stamps=stamps)

@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -115,7 +116,7 @@ def ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
     return ring, ids, overflow
 
 
-def _check_inputs(what, ring, targets, weights, dbins, spiked):
+def _check_inputs(what, ring, targets, weights, dbins, spiked, n_tgt):
     _build.require_cuda(what, ring, targets, weights, dbins, spiked)
     n = spiked.shape[0]
     if ring.dtype != torch.float32 or weights.dtype != torch.float32:
@@ -124,12 +125,18 @@ def _check_inputs(what, ring, targets, weights, dbins, spiked):
         raise TypeError(f"{what}: targets and dbins must be int32")
     if spiked.dtype != torch.bool:
         raise TypeError(f"{what}: spiked must be bool")
-    if ring.dim() != 3 or ring.shape[1:] != (2, n + 1):
-        raise ValueError(f"{what}: ring must be [D, 2, N+1], got "
-                         f"{tuple(ring.shape)} for N={n}")
+    check_ring(what, ring, n, n_tgt)
     if targets.shape[0] != n + 1 or weights.shape != targets.shape \
             or dbins.shape != targets.shape:
         raise ValueError(f"{what}: tables must be [N+1, K] alike")
+
+
+def check_ring(what, ring, n: int, n_tgt: int) -> None:
+    """``ring`` must be ``[D, 2, n_tgt + 1]``: a column per target and the
+    dump column (``n_tgt == n`` but in K2's local-ring form)."""
+    if ring.dim() != 3 or ring.shape[1:] != (2, n_tgt + 1):
+        raise ValueError(f"{what}: ring must be [D, 2, n_tgt+1], got "
+                         f"{tuple(ring.shape)} for n_tgt={n_tgt} (N={n})")
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
@@ -178,7 +185,7 @@ class StepConst(ctypes.Structure):
     step to step of a session, handed to the launch by pointer."""
     _fields_ = [("targets", _P), ("weights", _P), ("dbins", _P),
                 ("pmask", _P), ("ws", _P), ("k_pad", _I), ("n", _I),
-                ("n_exc", _I), ("d_bins", _I), ("budget", _I),
+                ("n_tgt", _I), ("n_exc", _I), ("d_bins", _I), ("budget", _I),
                 ("grid", _I), ("P11_ex", _F), ("P11_in", _F), ("P22", _F),
                 ("P21_ex", _F), ("P21_in", _F), ("P20", _F), ("V_th", _F),
                 ("V_reset", _F), ("E_L", _F), ("ref_steps", _I),
@@ -187,8 +194,8 @@ class StepConst(ctypes.Structure):
 
 def step_const(ptrs: tuple, sizes: tuple, prop, coef) -> StepConst:
     """The pack of ``ptrs`` (targets, weights, dbins, pmask, workspace:
-    device addresses, 0 for none), ``sizes`` (k_pad, n, n_exc, d_bins,
-    budget, grid), the propagators (None for K2: zeros) and, for K4, the
+    device addresses, 0 for none), ``sizes`` (k_pad, n, n_tgt, n_exc,
+    d_bins, budget, grid), the propagators (None for K2: zeros) and, for K4, the
     STDP coefficients."""
     lif = (prop.P11_ex, prop.P11_in, prop.P22, prop.P21_ex, prop.P21_in,
            prop.P20, prop.V_th, prop.V_reset, prop.E_L, prop.ref_steps) \
@@ -203,15 +210,17 @@ _cached_step_const = functools.lru_cache(maxsize=32)(step_const)
 
 
 def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
-                 d_bins: int, budget: int, grid: int, prop, coef
-                 ) -> StepConst:
+                 d_bins: int, budget: int, grid: int, prop, coef,
+                 n_tgt: Optional[int] = None) -> StepConst:
     """The cached pack of a session's tables (``pmask`` and ``coef`` None
     for K3 and K2, ``prop`` None for K2), workspace and sizes, as a launch
-    takes it."""
+    takes it.  ``n`` is the spike vector's length, ``n_tgt`` the ring's
+    target count (``n`` when None; K2's local-ring form gives its own)."""
     return _cached_step_const(
         (targets.data_ptr(), weights.data_ptr(), dbins.data_ptr(),
          0 if pmask is None else pmask.data_ptr(), ws.data_ptr()),
-        (targets.shape[1], n, n_exc, d_bins, budget, grid), prop, coef)
+        (targets.shape[1], n, n if n_tgt is None else int(n_tgt), n_exc,
+         d_bins, budget, grid), prop, coef)
 
 
 _IO_ARGTYPES = [_P] + [_P] * 15 + [_P]          # pack, tensors, t
@@ -321,20 +330,24 @@ def _check_counter(what, t, ring):
 
 
 def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
-          budget, prop, coef, t):
-    """Checks the delivery's inputs; returns the session's cached pack."""
-    _check_inputs(what, ring, targets, weights, dbins, spiked)
+          budget, prop, coef, t, n_tgt=None):
+    """Checks the delivery's inputs; returns the session's cached pack.
+    The grid is sized by the spike vector (``n + 1`` columns), which the
+    compaction covers; ``n_tgt`` (default ``n``) is the ring's target
+    count."""
+    n = spiked.shape[0]
+    n_tgt = n if n_tgt is None else int(n_tgt)
+    _check_inputs(what, ring, targets, weights, dbins, spiked, n_tgt)
     _check_counter(what, t, ring)
     k_pad = targets.shape[1]
     if budget * k_pad >= 2 ** 30:
         raise ValueError(f"{what}: budget x k_pad = {budget * k_pad} "
                          f"entries; the kernel counts them in 32 bits")
-    n = spiked.shape[0]
     dev = ring.device
     grid = cooperative_grid(dev, n + 1)
     return session_pack(targets, weights, dbins, pmask, workspace(dev, grid),
-                        n=n, n_exc=n_exc, d_bins=ring.shape[0], budget=budget,
-                        grid=grid, prop=prop, coef=coef)
+                        n=n, n_tgt=n_tgt, n_exc=n_exc, d_bins=ring.shape[0],
+                        budget=budget, grid=grid, prop=prop, coef=coef)
 
 
 def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
@@ -438,13 +451,15 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
 
 
 def deliver(ring, targets, weights, dbins, spiked, t, *, n_exc: int,
-            budget: int, stamps=None):
+            budget: int, n_tgt=None, stamps=None):
     """K2 on the card: the kernel's delivery-only form, one cooperative
     launch.  Returns ``(ring, ids, overflow)``; ``ring`` is updated in
-    place (see ``ell_deliver.ell_deliver``).  ``stamps`` as for
-    :func:`lif_deliver`; the launch stamps the first five of ``PHASES``."""
+    place (see ``ell_deliver.ell_deliver``).  With ``n_tgt`` (the local-ring
+    form) the ring is ``[D, 2, n_tgt + 1]`` and the launch is counted under
+    ``ell_deliver_local``.  ``stamps`` as for :func:`lif_deliver`; the
+    launch stamps the first five of ``PHASES``."""
     pack = _pack("ell_deliver", ring, targets, weights, dbins, None, spiked,
-                 n_exc, budget, None, None, t)
+                 n_exc, budget, None, None, t, n_tgt)
     ids = torch.empty(budget, dtype=torch.int32, device=ring.device)
     overflow = torch.empty((), dtype=torch.int32, device=ring.device)
     c_args = (ctypes.addressof(pack), spiked.data_ptr(), ring.data_ptr(),
@@ -454,9 +469,10 @@ def deliver(ring, targets, weights, dbins, spiked, t, *, n_exc: int,
     if stamps is None:
         code = lib.ell_deliver_launch(*c_args, stream)
     else:
-        _check_stamps("ell_deliver", stamps, ring, ring.shape[2])
+        _check_stamps("ell_deliver", stamps, ring, spiked.shape[0] + 1)
         code = lib.ell_deliver_stamped_launch(*c_args, stamps.data_ptr(),
                                               stream)
-    _build.launches["ell_deliver"] += 1
+    _build.launches["ell_deliver" if n_tgt is None
+                    else "ell_deliver_local"] += 1
     _build.check(lib, code, "ell_deliver (cooperative launch)")
     return ring, ids, overflow

@@ -23,6 +23,7 @@ import torch
 
 from repro_torch.api import (FusedBackend, InstrumentedBackend, Simulator,
                              concat, spike_stats, weight_stats)
+from repro_torch.api.backends import ShardedBackend
 from repro_torch.api.graph_cache import GraphCache
 from repro_torch.api.results import RunResult
 from repro_torch.configs.microcircuit import MicrocircuitConfig
@@ -64,6 +65,12 @@ class _GraphedOnCpu(FusedBackend):
     graphed = True
 
 
+class _ShardedGraphedOnCpu(ShardedBackend):
+    """``ShardedBackend``'s graphed path (a world of one), on the CPU."""
+    graph_type = _Reexecuted
+    graphed = True
+
+
 PATHS = {
     "static_fused": dict(strategy="ell", kernels="fused", plasticity=None),
     "static_split": dict(strategy="ell", kernels="split", plasticity=None),
@@ -72,6 +79,9 @@ PATHS = {
     "plastic_split": dict(strategy="ell", kernels="split",
                           plasticity="pair_stdp"),
     "dense_split": dict(strategy="dense", kernels="split", plasticity=None),
+    # the sharded backend (a world of one), which records no raster
+    "sharded": dict(strategy="ell", kernels="split", plasticity=None,
+                    sharded=True),
 }
 
 
@@ -89,7 +99,12 @@ def _session(path, backend="fused", t_presim=2.0, probes=None, **kw):
                   spike_stats(np.arange(0, 600, 7), bin_steps=5)]
         if p["plasticity"]:
             probes += ["mean_plastic_weight", weight_stats()]
-    if backend == "graphed":
+        if p.get("sharded"):
+            probes.remove("spikes")
+    if p.get("sharded"):
+        backend = _ShardedGraphedOnCpu(graph_steps=GRAPH_STEPS) \
+            if backend == "graphed" else "sharded"
+    elif backend == "graphed":
         backend = _GraphedOnCpu(plasticity=p["plasticity"],
                                 graph_steps=GRAPH_STEPS)
     cfg = MicrocircuitConfig(scale=SCALE, strategy=p["strategy"],
@@ -100,6 +115,9 @@ def _session(path, backend="fused", t_presim=2.0, probes=None, **kw):
 
 
 def _state_arrays(state) -> dict:
+    if hasattr(state, "V"):                     # a rank's ShardedSimState
+        return {k: getattr(state, k).clone().numpy() for k in (
+            "V", "I_ex", "I_in", "refrac", "ring", "t", "overflow")}
     sim, ps = (state, None) if hasattr(state, "neuron") else state
     out = {"V": sim.neuron.V, "I_ex": sim.neuron.I_ex,
            "I_in": sim.neuron.I_in, "refrac": sim.neuron.refrac,
@@ -152,7 +170,8 @@ def test_graphed_loop_equals_eager_loop(path):
         _assert_same_state(eager.state, graphed.state)
         assert torch.equal(eager._generator.get_state(),
                            graphed._generator.get_state())
-    assert a.data["spikes"].shape[1] == graphed.connectome.n_total
+    if "spikes" in a.data:
+        assert a.data["spikes"].shape[1] == graphed.connectome.n_total
     cache = graphed.backend.graphs
     # presim, 33, 5, 1 steps: four keys, the second 33 a hit
     assert cache.stats()["misses"] == 4 and cache.stats()["hits"] == 1
@@ -230,12 +249,16 @@ def test_warmup_leaves_state_untouched():
     assert len(sim.backend.caches()) == 0      # the instrumented loop
 
 
-@pytest.mark.parametrize("backend", ["fused", "graphed"])
+@pytest.mark.parametrize("backend", ["fused", "graphed", "sharded"])
 def test_run_chunked_equals_run(backend):
     """``run_chunked(4.7, 1.0)`` (chunks of 10, 10, 10, 10, 7 steps) equals
-    ``run(4.7)`` of a twin session, and chunks 2..4 capture nothing."""
-    one, chunked = _session("static_fused", backend=backend), \
-        _session("static_fused", backend=backend)
+    ``run(4.7)`` of a twin session, and chunks 2..4 capture nothing
+    (``sharded``: the sharded backend's graphed path)."""
+    path = "sharded" if backend == "sharded" else "static_fused"
+    if backend == "sharded":
+        backend = "graphed"
+    one, chunked = _session(path, backend=backend), \
+        _session(path, backend=backend)
     captures = []
     res = chunked.run_chunked(4.7, 1.0, callback=lambda i, r: captures.append(
         sum(c.misses for c in chunked.backend.caches())))

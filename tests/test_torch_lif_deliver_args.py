@@ -57,7 +57,8 @@ def _inputs(net, plastic, budget=128, grid=7):
         targets=tb.targets, weights=net["weights"] if plastic
         else tb.weights, dbins=tb.dbins,
         pmask=net["pmask"] if plastic else None, ws=net["ws"],
-        n=c.n_total, n_exc=c.n_exc, d_bins=c.d_max_bins, budget=budget,
+        n=c.n_total, n_tgt=c.n_total, n_exc=c.n_exc, d_bins=c.d_max_bins,
+        budget=budget,
         grid=grid, prop=None if plastic is None
         else Propagators.make(NeuronParams(), 0.1),
         coef=net["coef"] if plastic else None)
@@ -74,7 +75,8 @@ def _fresh(x):
             "dbins": x["dbins"].data_ptr(),
             "pmask": None if x["pmask"] is None else x["pmask"].data_ptr(),
             "ws": x["ws"].data_ptr(), "k_pad": x["targets"].shape[1],
-            "n": x["n"], "n_exc": x["n_exc"], "d_bins": x["d_bins"],
+            "n": x["n"], "n_tgt": x["n_tgt"], "n_exc": x["n_exc"],
+            "d_bins": x["d_bins"],
             "budget": x["budget"], "grid": x["grid"],
             **{f: f32(getattr(p, f)) if p else 0.0 for f in lif},
             "ref_steps": p.ref_steps if p else 0,
@@ -110,8 +112,8 @@ def test_cached_pack_equals_per_call_pack(nets, net_name, plastic):
         (x["targets"].data_ptr(), x["weights"].data_ptr(),
          x["dbins"].data_ptr(), 0 if x["pmask"] is None
          else x["pmask"].data_ptr(), x["ws"].data_ptr()),
-        (x["targets"].shape[1], x["n"], x["n_exc"], x["d_bins"], x["budget"],
-         x["grid"]), x["prop"], x["coef"]))
+        (x["targets"].shape[1], x["n"], x["n_tgt"], x["n_exc"], x["d_bins"],
+         x["budget"], x["grid"]), x["prop"], x["coef"]))
     assert _fields(again) == _fresh(x)
     assert _fields(again) != _fields(K3.session_pack(
         *(_inputs(nets[other], plastic)[k] for k in ("targets", "weights",
@@ -127,19 +129,23 @@ def test_pack_changes_with_the_budget_and_grid(nets):
                                                   "dbins", "pmask", "ws")}
     args = (x["targets"], x["weights"], x["dbins"], x["pmask"], x["ws"])
     base = K3.session_pack(*args, **kw)
-    for change in ({"budget": 256}, {"grid": 3}, {"n_exc": x["n_exc"] - 1}):
+    # the ring's target count: K2's local-ring form over a rank's block
+    for change in ({"budget": 256}, {"grid": 3}, {"n_exc": x["n_exc"] - 1},
+                   {"n_tgt": x["n"] // 2}):
         pack = K3.session_pack(*args, **{**kw, **change})
         (key, want), = change.items()
         assert getattr(pack, key) == want and getattr(base, key) != want
 
 
 def test_step_const_has_the_c_layout():
-    """5 pointers, k_pad..grid, the 10 LifProp fields, K4's 3 floats: the
-    C struct's 120 bytes (checked against the library on the card)."""
-    assert ctypes.sizeof(K3.StepConst) == 5 * 8 + 6 * 4 + 10 * 4 + 3 * 4 + 4
+    """5 pointers, k_pad..grid (the ring's target count n_tgt after n),
+    the 10 LifProp fields, K4's 3 floats: the C struct's 120 bytes
+    (checked against the library on the card)."""
+    assert ctypes.sizeof(K3.StepConst) == 5 * 8 + 7 * 4 + 10 * 4 + 3 * 4
     assert K3.StepConst.k_pad.offset == 40
-    assert K3.StepConst.P11_ex.offset == 64
-    assert K3.StepConst.dep_coef.offset == 104
+    assert K3.StepConst.n_tgt.offset == 48
+    assert K3.StepConst.P11_ex.offset == 68
+    assert K3.StepConst.dep_coef.offset == 108
 
 
 @pytest.mark.parametrize("n,grid", [(77_169, 132), (1_544, 7), (10, 132),

@@ -18,7 +18,15 @@ the DC and step-current stimuli alone (no randomness), from a state the
 JAX package left at step 30 (spikes in flight) carried through
 ``repro_torch.convert`` (the step counter a 0-d int32 tensor), 100 steps,
 against the eager JAX loop: the raster and the final state bitwise.
+
+The sharded engine's view of a timeline: ``Drive.plan`` and
+``padded_bases`` equal the JAX package's for the background beside each
+built-in (bases, gates, the padding zero), ``Drive.shard`` holds a rank's
+slice of them, and a stimulus in the general ``fn`` form is refused by
+both packages.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -262,3 +270,79 @@ def test_deterministic_drive_loop_bitwise_vs_jax_eager(nets, mode):
     want = _arrays(jnet, st)
     for key in ("V", "I_ex", "I_in", "refrac", "ring", "t", "overflow"):
         np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+
+
+# ---------------------------------------------------------------------------
+# The sharded engine's view of a timeline: plan, padded bases, a rank's drive
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_plan_and_padded_bases(nets, name):
+    """``Drive.plan`` and ``padded_bases`` against the JAX package's, on the
+    background followed by each built-in: the channels' bases in timeline
+    order, bitwise; the gates off and on at the same steps; the padding
+    zero; and a rank's ``Drive.shard`` holds the padded bases' slice in
+    timeline order, with the same gates."""
+    c_jax, c = nets
+    timeline = ("poisson_background", SPECS[name])
+    jdrive = JS.compile_drive(JS.resolve_timeline(timeline), c_jax,
+                              JaxSimConfig(dt=DT), JaxNeuronParams())
+    pdrive = S.compile_drive(timeline, c, SimConfig(dt=DT), NeuronParams(),
+                             "cpu")
+    assert pdrive.separable and jdrive.separable
+    steps = sorted(set(range(30)) | set(EDGES[name]))
+    for jrows, prows in zip(jdrive.plan(), pdrive.plan(), strict=True):
+        assert len(jrows) == len(prows)
+        for (jb, jg), (pb, pg) in zip(jrows, prows):
+            np.testing.assert_array_equal(pb, jb)
+            assert (jg is None) == (pg is None)
+            for t in steps if pg is not None else ():
+                np.testing.assert_array_equal(
+                    pg(torch.tensor(t, dtype=torch.int32)).numpy(),
+                    np.asarray(jg(jnp.int32(t))), err_msg=f"t={t}")
+    n = c.n_total
+    n_pad = n + 4
+    for jb, pb in zip(jdrive.padded_bases(n_pad), pdrive.padded_bases(n_pad),
+                      strict=True):
+        assert pb.dtype == np.float32 and pb.shape == jb.shape
+        assert pb.shape[1] == n_pad and not pb[:, n:].any()
+        np.testing.assert_array_equal(pb, jb)
+    rows = {ch: iter(b) for ch, b in zip(("spikes", "current"),
+                                         pdrive.padded_bases(n_pad))}
+    lo, hi = n_pad // 2, n_pad
+    local = pdrive.shard(n_pad, lo, hi, "cpu")
+    for s, basis, s_local in zip(pdrive.compiled, local.bases,
+                                 local.compiled, strict=True):
+        assert s_local is s
+        np.testing.assert_array_equal(basis.numpy(),
+                                      next(rows[s.channel])[lo:hi])
+
+
+def test_plan_refuses_a_general_fn(nets):
+    """A stimulus in the general ``fn`` form: both packages' ``plan`` (and
+    the port's ``padded_bases`` and ``shard``) refuse it."""
+    c_jax, c = nets
+
+    @dataclasses.dataclass(frozen=True)
+    class JaxKick(JS.Stimulus):
+        def compile(self, c, cfg, neuron):
+            return JS.CompiledStimulus(
+                channel="current", fn=lambda key, t, state: (None, None))
+
+    @dataclasses.dataclass(frozen=True)
+    class Kick(S.Stimulus):
+        def compile(self, c, cfg, neuron):
+            return S.CompiledStimulus(
+                channel="current", fn=lambda gen, t, state: (None, None))
+
+    jdrive = JS.compile_drive((JS.PoissonBackground(), JaxKick()), c_jax,
+                              JaxSimConfig(dt=DT), JaxNeuronParams())
+    pdrive = S.compile_drive((S.PoissonBackground(), Kick()), c,
+                             SimConfig(dt=DT), NeuronParams(), "cpu")
+    assert not pdrive.separable and not jdrive.separable
+    for call in (jdrive.plan, pdrive.plan,
+                 lambda: pdrive.padded_bases(c.n_total),
+                 lambda: pdrive.shard(c.n_total, 0, c.n_total, "cpu")):
+        with pytest.raises(NotImplementedError,
+                           match="separable stimuli only"):
+            call()
