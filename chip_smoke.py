@@ -151,6 +151,43 @@ Phases, each on its own line; any failed check exits non-zero:
    ``[sharded_nccl]`` and ``[sharded_nccl_hold]``, the same over an NCCL
    process group of one (``launch/mesh.init_single_process_group``), the
    all-gather captured in the graphs, the group destroyed after;
+9c. sharded sessions that checkpoint and serve, and the core's functional
+   entry points (``sharded_sessions_phase``), on the full-scale connectome
+   (``ell``), each sub-phase's launches counted from 0:
+   ``[sharded_checkpoint]``, a graphed world of one (``backend=
+   "sharded"``): 100 ms presim, 150 steps, ``save`` (the reference's
+   global layout), 150 steps (A); a new session on the same backend with
+   another seed ``restore``s and runs 150 steps (B): the registry, the
+   population counts, ``t``, overflow, refrac and the generator exact, V,
+   the currents and the ring within 1e-5 (elements with other bits
+   counted), the graph cache's misses unmoved by the restore and B's run;
+   the checkpoint's bytes, the save and restore seconds; then the
+   resident session (B) and the other (A) suspended, the device bytes
+   each suspend frees, both resumed and run 150 steps against each other
+   (the same checks, no capture); K1 and K2's local-ring form only;
+   ``[sharded_checkpoint_nccl]``, the same over an NCCL group of one, the
+   save's gather through the collective; ``[serve_sharded]``, a
+   ``SessionManager`` on ``backend="sharded"`` at scale
+   ``SERVE_SHARDED_SCALE`` (its pool builds its own connectome): a second
+   create that builds and captures nothing, 30 ms in 4 chunks exact
+   against a twin's one run, 200 ms in 4 chunks (RTF), the resident and a
+   non-resident session suspended (bytes freed) and resumed, each 20 ms
+   against a twin carried from its state, and two coalesced sessions
+   against two run one by one (spikes and counts exact, the state within
+   1e-5), K1 and K2's local-ring form only; ``[core_simulate]``, ``repro_torch.core.simulate`` with
+   ``kernels="split"``: 100 ms from a fresh state, then 100 ms timed (ms a
+   step; K1 and K2 once a step and nothing else, overflow 0, rates in
+   band) and 300 steps recording spikes, held exact against the
+   instrumented session from the same state and generator state;
+   ``[core_simulate_plastic]``, ``simulate_plastic`` for 300 steps (K4 and
+   ``stdp_update`` once a step), its counts and mean plastic weight
+   bitwise ``Simulator(plasticity=...)``'s from the same seed (the shim
+   is that session, so this checks its wiring and that a seed determines
+   the run, not the plastic path itself: phase 7 holds that);
+   ``[phase_runner]``, ``PhaseRunner.step_timed`` for 100 steps: the
+   reference's timer keys, K1 and K2 once a step and once in the
+   backend's warm-up and nothing else, the spikes exact against the
+   instrumented session's;
 10. the dense strategy, once the full-scale sessions are freed:
    (b) at scale 0.02 its split path (K1 + K5, bin-major table) against its
    reference path (two ``torch.matmul`` GEMVs on the source-major table)
@@ -1417,6 +1454,411 @@ def sharded_phase(c, args, card: str, dev, rtf_fused: float,
     say("sharded_phase", seconds=f"{time.perf_counter() - t_phase:.1f}")
     out["launches"] = runs
     return out
+
+
+#: [serve_sharded]: the scale of its pool's own connectome (a scenario
+#: file's; a second full-scale host build would cost about two minutes)
+SERVE_SHARDED_SCALE = 0.05
+#: [sharded_checkpoint]: steps before and after the save, and after the
+#: restore (within the 300 over which [graph_static] holds spikes exact)
+CKPT_STEPS = 150
+
+
+def sharded_checkpoint(phase: str, c, cfg, card: str, dev) -> tuple:
+    """``[sharded_checkpoint]`` (the module's docstring): a graphed world
+    of one saves after its presim and 150 steps, runs 150 more (A); a new
+    session on the same backend restores and runs 150 (B).  Then a
+    resident and a non-resident suspend, each resumed and run on 150 steps
+    against the other.  Returns the line's fields and the launches."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Simulator
+    from repro_torch.kernels import _build
+
+    N = c.n_total
+    t_ms = CKPT_STEPS * cfg.dt
+    probes = ("pop_counts", raster_probe(CKPT_STEPS, N))
+    _build.reset_launches()
+    a = Simulator(cfg, connectome=c, backend="sharded", device=dev,
+                  probes=probes)
+    if a.backend.n_dev != 1 or not a.backend.graphed:
+        fail(f"{phase}: not a graphed world of one")
+    a.warmup(t_ms)
+    a.run(t_ms, probes=("pop_counts",))
+    out = {"collective": a.backend.world.group is not None}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = a.save(tmp)
+        out["save_s"] = time.perf_counter() - t0
+        out["checkpoint_bytes"] = dir_bytes(path)
+        with np.load(os.path.join(path, "host_0.npz")) as f:
+            out["ring_shape"] = json.dumps(list(f["['state']||.ring"].shape))
+        overflow_saved = a.backend.overflow(a.state)
+        run_a = a.run(t_ms)
+        # another seed: b must take the checkpoint's generator state
+        b = Simulator(cfg, connectome=c, backend=a.backend, device=dev,
+                      probes=probes, key=int(cfg.seed) + 1000)
+        misses = a.backend.graphs.misses
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b.restore(tmp)
+        torch.cuda.synchronize()
+        out["restore_s"] = time.perf_counter() - t0
+        if b.backend.overflow(b.state) != overflow_saved:
+            fail(f"{phase}: the restored overflow differs from the saved")
+        run_b = b.run(t_ms)
+        torch.cuda.synchronize()
+        if a.backend.graphs.misses != misses:
+            fail(f"{phase}: the restore or the run after it captured "
+                 f"({misses} -> {a.backend.graphs.misses} misses)")
+        same_runs(f"{phase} (A against B)", run_a, run_b)
+        rows = lambda r: r.streams["raster"]["carry"]["rows"]
+        if not np.array_equal(rows(run_a), rows(run_b)):
+            fail(f"{phase}: the gathered registry of B differs from A's")
+        if not torch.equal(a._generator.get_state(),
+                           b._generator.get_state()):
+            fail(f"{phase}: the generators' states differ after B")
+        out["elements_with_other_bits"] = json.dumps(
+            compare_states(f"{phase} (A against B)", a.state, b.state))
+        out["spikes"] = int(rows(run_a).sum())
+        # b is resident in the backend's buffers, a is not
+        freed = {}
+        for name, sess in (("resident", b), ("not_resident", a)):
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            sess.suspend(os.path.join(tmp, name))
+            gc.collect()
+            freed[name] = mem0 - torch.cuda.memory_allocated()
+        misses = a.backend.graphs.misses
+        for name, sess in (("resident", b), ("not_resident", a)):
+            sess.resume(os.path.join(tmp, name))
+        run_a, run_b = a.run(t_ms), b.run(t_ms)
+        torch.cuda.synchronize()
+        if a.backend.graphs.misses != misses:
+            fail(f"{phase}: a resume or the run after it captured")
+        same_runs(f"{phase} (resumed A against resumed B)", run_a, run_b)
+        if not np.array_equal(rows(run_a), rows(run_b)):
+            fail(f"{phase}: the resumed sessions' registries differ")
+        out["resumed_elements_with_other_bits"] = json.dumps(
+            compare_states(f"{phase} (resumed)", a.state, b.state))
+    counts = launched(phase, ("lif_update", "ell_deliver_local"))
+    if any(v for k, v in counts.items()
+           if k not in ("lif_update", "ell_deliver_local")):
+        fail(f"{phase}: launched {counts} (K1 and K2's local-ring form "
+             f"only)")
+    out.update(steps_before_save=CKPT_STEPS, steps_a_b=CKPT_STEPS,
+               presim_ms=cfg.t_presim, captures_by_restore=0,
+               exact=json.dumps(["spikes", "pop_counts", "t", "overflow",
+                                 "refrac", "generator"]),
+               resident_suspend_freed_bytes=freed["resident"],
+               not_resident_suspend_freed_bytes=freed["not_resident"],
+               launches=json.dumps(counts), card=json.dumps(card))
+    del a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def serve_sharded(args, card: str, dev) -> tuple:
+    """``[serve_sharded]`` (the module's docstring).  Returns the line's
+    fields and the launches."""
+    import torch
+    from repro_torch.api import Experiment, concat
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.kernels import _build
+    from repro_torch.serve import SessionManager, cache_stats
+
+    compiles = lambda: cache_stats()["compiles"]
+    exp = Experiment(model=MicrocircuitConfig(scale=SERVE_SHARDED_SCALE,
+                                              strategy="ell"),
+                     backend="sharded", probes=("pop_counts",
+                                                "total_counts"),
+                     name="serve_sharded")
+    _build.reset_launches()
+    out = {"scale": SERVE_SHARDED_SCALE}
+    with SessionManager(device=dev) as mgr:
+        t0 = time.perf_counter()
+        a = mgr.create(exp, seed=args.seed)
+        out["create_s"] = time.perf_counter() - t0
+        before = compiles()
+        twin = mgr.create(exp, seed=args.seed)
+        if compiles() != before or twin.sim.backend is not a.sim.backend:
+            fail("serve_sharded: the second create built or captured")
+        if a.sim.backend.name != "sharded" or a.sim.backend.n_dev != 1 \
+                or not a.sim.backend.graphed:
+            fail("serve_sharded: not a graphed sharded world of one")
+        # 30 ms in 4 chunks against the twin's one run (300 steps after the
+        # presim), then 200 ms in 4 chunks, timed
+        chunks = []
+        a.run(30.0, chunk_ms=7.5, callback=lambda i, r: chunks.append(r))
+        same_runs("serve_sharded (chunks against the twin)",
+                  concat(chunks), twin.run(30.0))
+        a.sim.warmup(50.0, include_presim=False)   # the chunks' graphs
+        t0 = time.perf_counter()
+        long = a.run(200.0, chunk_ms=50.0)
+        out.update(request_s=time.perf_counter() - t0, rtf_200ms=long.rtf,
+                   overflow=long.overflow,
+                   rates_hz=json.dumps([round(float(r), 3) for r in
+                                        long.summary()["rates_hz"]]))
+        if long.overflow:
+            fail(f"serve_sharded: overflow {long.overflow}")
+        # suspend and resume, the resident session and one that is not,
+        # each held to a twin carried from its state
+        twin.run(0.1)                    # twin resident, a not
+        a.sim.warmup(20.0, include_presim=False)   # the held runs' graphs
+        for name, sess in (("resident", twin), ("not_resident", a)):
+            other = mgr.create(exp, seed=0)
+            other.sim.state = clone_state(sess.sim.state)
+            gc.collect()
+            torch.cuda.synchronize()
+            mem0 = torch.cuda.memory_allocated()
+            path = sess.suspend()
+            gc.collect()
+            out[f"{name}_suspend_freed_bytes"] = \
+                mem0 - torch.cuda.memory_allocated()
+            out[f"{name}_checkpoint_bytes"] = dir_bytes(path)
+            before = compiles()
+            sess.resume()                # under the zero-capture guard
+            r_s, r_o = sess.run(20.0), other.sim.run(20.0, presim_ms=0)
+            if compiles() != before:
+                fail(f"serve_sharded: {name} resume or run captured")
+            same_runs(f"serve_sharded ({name} resumed against twin)", r_s,
+                      r_o)
+            out[f"{name}_resumed_bits"] = json.dumps(compare_states(
+                f"serve_sharded ({name} resumed)", sess.sim.state,
+                other.sim.state))
+            mgr.destroy(other.id)
+        # two sessions coalesced, two twins one by one
+        seeds = (args.seed + 2, args.seed + 3)
+        co = [mgr.create(exp, seed=s) for s in seeds]
+        seq = [mgr.create(exp, seed=s) for s in seeds]
+        got = mgr.run_many({s.id: 20.0 for s in co}, coalesce=True)
+        want = mgr.run_many({s.id: 20.0 for s in seq}, coalesce=False)
+        bits = {}
+        for x, y in zip(co, seq):
+            same_runs(f"serve_sharded (coalesced {x.id} against {y.id})",
+                      got[x.id], want[y.id])
+            bits[x.id] = compare_states(f"serve_sharded (coalesced "
+                                        f"{x.id})", x.sim.state, y.sim.state)
+        out["coalesced_bits"] = json.dumps(bits)
+    counts = launched("serve_sharded", ("lif_update", "ell_deliver_local"))
+    if any(v for k, v in counts.items()
+           if k not in ("lif_update", "ell_deliver_local")):
+        fail(f"serve_sharded: launched {counts} (K1 and K2's local-ring "
+             f"form only)")
+    out.update(chunks_equal_to_twin=True, resumed_equal_to_twin=True,
+               coalesced_equal_to_sequential=True,
+               launches=json.dumps({k: v for k, v in counts.items() if v}),
+               card=json.dumps(card))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def core_phase(c, args, card: str, dev) -> dict:
+    """``[core_simulate]``, ``[core_simulate_plastic]`` and
+    ``[phase_runner]`` (the module's docstring) on the full-scale
+    connectome.  Returns each line's launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from repro_torch.api import Simulator
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.core import engine as E
+    from repro_torch.core import plasticity as PL
+    from repro_torch.core import recording
+    from repro_torch.kernels import _build
+
+    runs = {}
+    cfg0 = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                              t_presim=0.0, seed=args.seed)
+    split = E.SimConfig(strategy="ell", kernels="split")
+    warnings.simplefilter("ignore", DeprecationWarning)
+    pops = np.repeat(np.arange(len(c.pop_sizes)), c.pop_sizes)
+    counts_of = lambda raster: np.stack(
+        [raster[:, pops == p].sum(1) for p in range(len(c.pop_sizes))], 1)
+
+    # [core_simulate]: 100 ms from a fresh state (the transient), then
+    # 100 ms timed from its final state, K1 and K2 once a step
+    st, _, net = E.simulate(c, 100.0, split, key=args.seed, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    st, rec, _ = E.simulate(c, 100.0, split, net=net, state=st, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = rec.shape[0]
+    runs["core_simulate"] = launched("core_simulate",
+                                     ("lif_update", "ell_deliver"))
+    got = {k: v for k, v in runs["core_simulate"].items() if v}
+    if got != {"lif_update": n, "ell_deliver": n}:
+        fail(f"core_simulate: launched {got} for {n} steps (K1 and K2 once "
+             f"a step, nothing else)")
+    if int(st.overflow) != 0:
+        fail(f"core_simulate: overflow {int(st.overflow)}")
+    rates = recording.activity_summary(rec.cpu().numpy(), c,
+                                       0.1)["rates_hz"]
+    check_rates(rates, "core_simulate")
+    # 300 steps from one state and generator state against the
+    # instrumented session
+    start = clone_state(st)
+    gen = st.generator
+    twin_gen = torch.Generator(device=dev)
+    twin_gen.set_state(gen.get_state())
+    with_spikes = E.SimConfig(strategy="ell", kernels="split",
+                              record="spikes")
+    st2, raster, _ = E.simulate(c, 30.0, with_spikes, net=net,
+                                state=st, device=dev)
+    inst = Simulator(cfg0, connectome=c, backend="instrumented",
+                     kernels="split", device=dev,
+                     probes=("pop_counts", "spikes"))
+    inst.state = start._replace(generator=twin_gen)
+    res = inst.run(30.0)
+    raster = raster.cpu().numpy()
+    if not np.array_equal(raster, res["spikes"]):
+        fail("core_simulate: the spikes differ from the instrumented "
+             "session's")
+    if not np.array_equal(counts_of(raster), res["pop_counts"]):
+        fail("core_simulate: the population counts differ from the "
+             "instrumented session's")
+    if not torch.equal(st2.generator.get_state(),
+                       inst._generator.get_state()):
+        fail("core_simulate: the generators' states differ")
+    bits = compare_states("core_simulate (against instrumented)", st2,
+                          inst.state)
+    say("core_simulate", policy="split (K1 + K2)", steps=n,
+        ms_per_step=wall / n * 1e3, rtf=wall / (n * 1e-4), overflow=0,
+        spikes_per_step=float(rec.sum()) / n,
+        rates_hz=json.dumps([round(float(r), 3) for r in rates]),
+        held_steps=raster.shape[0], spikes_held=int(raster.sum()),
+        exact=json.dumps(["spikes", "pop_counts", "t", "overflow", "refrac",
+                          "generator"]),
+        elements_with_other_bits=json.dumps(bits),
+        launches=json.dumps(got), card=json.dumps(card))
+    del st, st2, net, rec, start, inst, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [core_simulate_plastic]: 300 steps, K4 and stdp_update once a step,
+    # bitwise the session's
+    sim_cfg = E.SimConfig(strategy="ell")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    _, ps, (counts, mean_w) = PL.simulate_plastic(
+        c, 30.0, sim_cfg, PL.STDPConfig(), key=args.seed, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["core_simulate_plastic"] = launched(
+        "core_simulate_plastic", ("lif_deliver_plastic", "stdp_update"))
+    n = counts.shape[0]
+    got = runs["core_simulate_plastic"]
+    # once a step, and once for each of the steps the new backend runs
+    # eagerly on a copy before its first capture (its head and a steady
+    # step)
+    warm = 3
+    if got["lif_deliver_plastic"] != n + warm \
+            or got["stdp_update"] != n + warm:
+        fail(f"core_simulate_plastic: launched {got} for {n} steps and "
+             f"{warm} warm-up steps")
+    del ps
+    gc.collect()
+    sess = Simulator(connectome=c, sim_config=sim_cfg,
+                     plasticity=PL.PairSTDP.from_stdp_config(
+                         PL.STDPConfig()),
+                     probes=("pop_counts", "mean_plastic_weight"),
+                     key=args.seed, device=dev)
+    res = sess.run(30.0)
+    if not (np.array_equal(counts, res["pop_counts"])
+            and np.array_equal(mean_w.view(np.int32),
+                               res["mean_plastic_weight"].view(np.int32))):
+        fail("core_simulate_plastic: the counts or the mean plastic weight "
+             "differ from Simulator(plasticity=...)'s from the same seed "
+             "(the shim's wiring, or a run a seed does not determine)")
+    say("core_simulate_plastic", steps=n, wall_s=wall,
+        spikes=int(counts.sum()), mean_weight_first=float(mean_w[0]),
+        mean_weight_last=float(mean_w[-1]),
+        same_as_session_from_seed=True,
+        launches=json.dumps({k: v for k, v in got.items() if v}),
+        card=json.dumps(card))
+    del sess, res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # [phase_runner]: 100 timed steps against the instrumented session
+    _build.reset_launches()
+    runner = E.PhaseRunner(c, split, key=args.seed, device=dev)
+    twin_gen = torch.Generator(device=dev)
+    twin_gen.set_state(runner.state.generator.get_state())
+    start = clone_state(runner.state)._replace(generator=twin_gen)
+    timers = {}
+    spikes = [runner.step_timed(timers) for _ in range(100)]
+    runs["phase_runner"] = launched("phase_runner",
+                                    ("lif_update", "ell_deliver"))
+    # once a step, and once for each step the backend's warm-up runs
+    # eagerly on a copy of the state before the timers start
+    warm = runner._backend.head + 1
+    got = {k: v for k, v in runs["phase_runner"].items() if v}
+    if got != {"lif_update": 100 + warm, "ell_deliver": 100 + warm}:
+        fail(f"phase_runner: launched {got} for 100 steps and {warm} "
+             f"warm-up step(s) (K1 and K2 once a step, nothing else)")
+    inst = Simulator(cfg0, connectome=c, backend="instrumented",
+                     kernels="split", device=dev, probes=("spikes",))
+    inst.state = start
+    res = inst.run(10.0)
+    raster = torch.stack(spikes).cpu().numpy()
+    if sorted(timers) != ["deliver", "update"]:
+        fail(f"phase_runner: timers {sorted(timers)}, not the reference's "
+             f"['deliver', 'update']")
+    if not np.array_equal(raster, res["spikes"]):
+        fail("phase_runner: the spikes differ from the instrumented "
+             "session's")
+    say("phase_runner", steps=100, spikes=int(raster.sum()),
+        timers_s=json.dumps(timers), spikes_exact=True,
+        launches=json.dumps(got),
+        ms_per_step=sum(timers.values()) / 100 * 1e3,
+        card=json.dumps(card))
+    warnings.simplefilter("default", DeprecationWarning)
+    del runner, inst, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return runs
+
+
+def sharded_sessions_phase(c, args, card: str, dev) -> dict:
+    """Phase 9c (the module's docstring), on the full-scale connectome
+    ``c``.  Returns each sub-phase's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs.microcircuit import MicrocircuitConfig
+    from repro_torch.launch import mesh
+
+    t_phase = time.perf_counter()
+    cfg = MicrocircuitConfig(scale=args.scale, strategy="ell",
+                             seed=args.seed)
+    runs = {}
+    line, runs["sharded_checkpoint"] = sharded_checkpoint(
+        "sharded_checkpoint", c, cfg, card, dev)
+    say("sharded_checkpoint", **line)
+    mesh.init_single_process_group("nccl")
+    try:
+        line, runs["sharded_checkpoint_nccl"] = sharded_checkpoint(
+            "sharded_checkpoint_nccl", c, cfg, card, dev)
+        if not line["collective"]:
+            fail("sharded_checkpoint_nccl: the world has no process group")
+        say("sharded_checkpoint_nccl", backend=dist.get_backend(), **line)
+    finally:
+        dist.destroy_process_group()
+    line, runs["serve_sharded"] = serve_sharded(args, card, dev)
+    say("serve_sharded", **line)
+    runs.update(core_phase(c, args, card, dev))
+    say("sharded_sessions_phase",
+        seconds=f"{time.perf_counter() - t_phase:.1f}")
+    return runs
 
 
 def session_api_phase(c, args, card: str, dev) -> dict:
@@ -2705,6 +3147,11 @@ def main() -> None:
     sharded = sharded_phase(c, args, card, dev, rtf_main, spikes_per_step,
                             budget_main)
 
+    # -- 9c. sharded checkpoints, the sharded server, the core's shims -------
+    gc.collect()
+    torch.cuda.empty_cache()
+    sessions9c = sharded_sessions_phase(c, args, card, dev)
+
     # -- 10. the dense strategy -----------------------------------------------
     del c
     gc.collect()
@@ -2919,7 +3366,9 @@ def main() -> None:
                    **{path: counts[name]
                       for path, counts in api_runs.items()},
                    **{path: counts[name] for path, counts
-                      in sharded["launches"].items()}}
+                      in sharded["launches"].items()},
+                   **{path: counts[name] for path, counts
+                      in sessions9c.items()}}
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/csrc/{source}",
                 "replaces": replaces,

@@ -99,8 +99,10 @@ import time
 import weakref
 from typing import Any, Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch import convert
 from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api.graph_cache import GraphCache
 from repro_torch.api.probes import ProbeContext, StreamProbe, split_probes
@@ -110,6 +112,7 @@ from repro_torch.core import plasticity as PL
 from repro_torch.core import stimulus as stim
 from repro_torch.core.connectivity import Connectome
 from repro_torch.core.engine import (SimConfig, SimState, deliver_phase,
+                                     force_split_step,
                                      fused_plastic_update_phase,
                                      fused_update_phase, init_state,
                                      prepare_network, resolve_sim_config,
@@ -175,15 +178,6 @@ def _clone_generator(gen: Optional[torch.Generator]):
     twin = torch.Generator(device=gen.device)
     twin.set_state(gen.get_state())
     return twin
-
-
-def _force_split_step(cfg: SimConfig) -> SimConfig:
-    """Per-step-dispatch backends have no one-kernel path: pin the resolved
-    policy's step to the phase-split loop (its other choices untouched)."""
-    if cfg.kernels is not None and cfg.kernels.step == "fused":
-        cfg = dataclasses.replace(
-            cfg, kernels=dataclasses.replace(cfg.kernels, step="split"))
-    return cfg
 
 
 class Backend:
@@ -286,9 +280,28 @@ class Backend:
         sim = state if hasattr(state, "overflow") else state[0]
         return int(sim.overflow.item())
 
-    #: whether ``Simulator.save`` / ``restore`` can write and read this
-    #: backend's state
-    checkpoints: bool = True
+    # -- checkpoints (``Simulator.save`` / ``restore``) ---------------------
+
+    def checkpoint_state(self, state: Any) -> Any:
+        """The tree a checkpoint holds for ``state``: the state itself."""
+        return state
+
+    def checkpoint_template(self, state: Any) -> Any:
+        """The tree a checkpoint is checked against and read into: the
+        state's own structure."""
+        return state
+
+    def restore_state(self, state: Any, saved: Any) -> torch.Tensor:
+        """Copy ``saved`` (a checkpoint read in ``checkpoint_template``'s
+        structure) into ``state``'s tensors, in place; returns the
+        generator state the session goes on from."""
+        copy_into(state, saved)
+        sim = saved if hasattr(saved, "overflow") else saved[0]
+        return sim.generator.get_state()
+
+    def publish(self, write: Callable[[], str], path: str) -> str:
+        """Run ``write``, a checkpoint's write, which returns ``path``."""
+        return write()
 
 
 class _LoopBackend(Backend):
@@ -300,7 +313,10 @@ class _LoopBackend(Backend):
             else PL.resolve_rule(plasticity)
         self.timers: Dict[str, float] = {}
 
-    def build(self, c: Connectome, cfg: SimConfig, device) -> None:
+    def build(self, c: Connectome, cfg: SimConfig, device,
+              neuron: Optional[NeuronParams] = None) -> None:
+        """Build the tables on ``device``; ``neuron`` (the default
+        parameters when None) only for the deprecated ``PhaseRunner``."""
         self.builds += 1
         self.device = torch.device(device)
         kind = None if self.plasticity is None else self.plasticity.kind
@@ -314,7 +330,7 @@ class _LoopBackend(Backend):
                 f"path (live_tables); {cfg.strategy!r} has none -- use "
                 f"'event' or 'ell'")
         self.c, self.cfg = c, cfg
-        neuron = NeuronParams()
+        neuron = neuron or NeuronParams()
         self.prop = Propagators.make(neuron, cfg.dt)
         self.net = prepare_network(c, cfg, self.device)
         self.n_pops = len(c.pop_sizes)
@@ -559,10 +575,10 @@ class FusedBackend(_LoopBackend):
         self.graph_steps = int(graph_steps)
         self.graphs = GraphCache("fused.graphs")
 
-    def build(self, c, cfg, device) -> None:
+    def build(self, c, cfg, device, neuron=None) -> None:
         """Build the tables; the graphs and the static buffers of an
         earlier build go (they read the old tables)."""
-        super().build(c, cfg, device)
+        super().build(c, cfg, device, neuron)
         self._reset_graphs()
 
     def _reset_graphs(self) -> None:
@@ -729,10 +745,10 @@ class InstrumentedBackend(_LoopBackend):
                     and probe.needs != "spiked")
 
     def _normalize_cfg(self, cfg):
-        return _force_split_step(cfg)
+        return force_split_step(cfg)
 
-    def build(self, c, cfg, device) -> None:
-        super().build(c, cfg, device)
+    def build(self, c, cfg, device, neuron=None) -> None:
+        super().build(c, cfg, device, neuron)
         self._warmed = False
 
     def warmup(self, state, n_steps, probes) -> None:
@@ -742,28 +758,40 @@ class InstrumentedBackend(_LoopBackend):
             self._warm_eagerly(state)
             self._warmed = True
 
-    def run(self, state, n_steps: int, probes: Sequence,
-            stream: Optional[Dict[str, Any]] = None):
-        step_probes, stream_probes = split_probes(tuple(probes))
-        self.warmup(state, n_steps, probes)
-        mark = [0.0]
+    def _ticker(self, timers: Dict[str, float]):
+        """``tick(phase)``: the phase's seconds since the last mark, once
+        the card is done with it, added to ``timers[phase]``;
+        ``tick(None)`` only sets the mark (as does making the ticker)."""
+        mark = [time.perf_counter()]
 
         def tick(phase):
-            """The phase's seconds since the last mark, once the card is
-            done with it; ``None`` only sets the mark."""
             if phase is not None:
                 self._sync()
             now = time.perf_counter()
             if phase is not None:
-                self.timers[phase] = (self.timers.get(phase, 0.0) + now
-                                      - mark[0])
+                timers[phase] = timers.get(phase, 0.0) + now - mark[0]
             mark[0] = now
+        return tick
 
+    def run(self, state, n_steps: int, probes: Sequence,
+            stream: Optional[Dict[str, Any]] = None):
+        step_probes, stream_probes = split_probes(tuple(probes))
+        self.warmup(state, n_steps, probes)
         carry, outs = self._segment(
             self._carry(state, stream_probes, stream), 0, n_steps,
-            step_probes, stream_probes, tick)
+            step_probes, stream_probes, self._ticker(self.timers))
         return self._state_of(carry), self._data(carry, outs, step_probes,
                                                  stream_probes)
+
+    def step_timed(self, state, timers: Dict[str, float]):
+        """One update + deliver cycle (and, in a plastic session, its STDP
+        step), each phase's seconds added to ``timers``; returns
+        ``(state', spiked)``.  The ``PhaseRunner`` shim's step
+        (``repro/api/backends.py:556-570``)."""
+        self.warmup(state, 1, ())
+        carry, spiked = self._split_step(self._carry(state, (), None), 0,
+                                         self._ticker(timers))
+        return self._state_of(carry), spiked
 
 
 class ShardedBackend(FusedBackend):
@@ -790,11 +818,22 @@ class ShardedBackend(FusedBackend):
     with ``distributed.rank_seed(seed, rank)``, ``seed`` being the
     generator's initial seed (the session's), and draws its slice's drive
     from it.
+
+    Checkpoints hold the reference's global ``ShardedSimState``
+    (``repro/core/distributed.py:116-124``): the neuron state ``[N_pad]``,
+    the ring ``[D, 2, N_pad + n_dev]`` (rank r's block at columns
+    ``r * (n_loc + 1)``), ``t``, one overflow per rank (each rank's counter
+    is the global one), and, where the reference keeps one key per device,
+    each rank's generator state as a row of ``[n_dev, S]`` uint8.  A save
+    is collective: every rank all-gathers the shards (a world of one
+    without a group copies), rank 0 writes, and every rank returns once
+    the write is published.  A restore checks the manifest against the
+    global shapes on every rank before any array is read, then each rank
+    copies its slice and its generator row into its state.
     """
 
     name = "sharded"
     _SUPPORTED = frozenset({"pop_counts", "total_counts"})
-    checkpoints = False
 
     def __init__(self, n_devices: Optional[int] = None,
                  graph_steps: int = GRAPH_STEPS):
@@ -802,7 +841,7 @@ class ShardedBackend(FusedBackend):
         self.n_devices = n_devices
 
     def _normalize_cfg(self, cfg):
-        return _force_split_step(cfg)
+        return force_split_step(cfg)
 
     def supports_probe(self, probe) -> bool:
         if isinstance(probe, StreamProbe):
@@ -867,6 +906,70 @@ class ShardedBackend(FusedBackend):
         return DD.init_shard(V, self.c.d_max_bins, self.meta,
                              self.world.rank, generator,
                              float(self.prop.V_reset))
+
+    # -- checkpoints ----------------------------------------------------------
+
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's ``x``, ``[n_dev, *x.shape]`` (one all-gather)."""
+        return self.world.gather(x.reshape(-1)).view(self.n_dev, *x.shape)
+
+    def checkpoint_state(self, state: DD.ShardedSimState
+                         ) -> DD.ShardedSimState:
+        """The world's global state as numpy, on every rank (collective)."""
+        rows = {name: self._rows(getattr(state, name)) for name in
+                ("V", "I_ex", "I_in", "refrac", "ring", "t", "overflow")}
+        gens = self._rows(state.generator.get_state().to(self.device))
+        shards = [(None, DD.ShardedSimState(
+            generator=None, **{k: v[r] for k, v in rows.items()}))
+            for r in range(self.n_dev)]
+        arrays = convert.sharded_to_numpy(shards)
+        return DD.ShardedSimState(
+            generator=gens.cpu().numpy(),
+            **{k: arrays[k] for k in rows})
+
+    def checkpoint_template(self, state: DD.ShardedSimState
+                            ) -> DD.ShardedSimState:
+        """The global state's shapes and dtypes (zero-stride numpy arrays:
+        nothing is allocated)."""
+        n_pad, n_dev = self.meta["n_pad"], self.n_dev
+        like = lambda shape, dtype: np.broadcast_to(np.zeros((), dtype),
+                                                    shape)
+        f32 = lambda: like((n_pad,), np.float32)
+        return DD.ShardedSimState(
+            V=f32(), I_ex=f32(), I_in=f32(),
+            refrac=like((n_pad,), np.int32),
+            ring=like((state.ring.shape[0], 2, n_pad + n_dev), np.float32),
+            t=like((), np.int32),
+            generator=like((n_dev, state.generator.get_state().numel()),
+                           np.uint8),
+            overflow=like((n_dev,), np.int32))
+
+    def restore_state(self, state: DD.ShardedSimState,
+                      saved: DD.ShardedSimState) -> torch.Tensor:
+        rank = self.world.rank
+        copy_into(state, convert.sharded_state_to_torch(
+            saved._asdict(), rank, self.n_dev, self.device))
+        return torch.from_numpy(np.array(saved.generator[rank]))
+
+    def publish(self, write: Callable[[], str], path: str) -> str:
+        """Rank 0 writes; every rank returns once it has (a one-word
+        all-gather of rank 0's outcome), and raises if it failed."""
+        if self.world.group is None:
+            return write()
+        error = None
+        if self.world.rank == 0:
+            try:
+                write()
+            except Exception as e:       # re-raised after the others know
+                error = e
+        ok = self.world.gather(torch.tensor(
+            [error is None], dtype=torch.int32, device=self.device))
+        if error is not None:
+            raise error
+        if not bool(ok[0]):
+            raise RuntimeError(f"rank 0 failed to write the checkpoint "
+                               f"{path} (its error is on rank 0)")
+        return path
 
     def _sharded_step(self, carry: Carry, i: int, tick=None):
         """One step of this rank: update, gather, delivery.  ``tick`` marks

@@ -28,13 +28,14 @@ the update of step i - 1's spikes.
 Probes are interned (``resolve`` gives one instance per built-in name, and
 ``spike_stats`` one per sample and bin width), because the backend's graph
 cache keys on probe instances: resolving the same name twice must not
-capture a second graph.
+capture a second graph.  ``ProbeLike`` is what ``resolve`` takes: a name,
+a ``Probe`` or a ``StreamProbe``.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -255,6 +256,8 @@ def split_probes(probes: Sequence) -> tuple:
     stream = tuple(p for p in probes if isinstance(p, StreamProbe))
     return step, stream
 
+
+ProbeLike = Union[str, Probe, StreamProbe]
 
 _BUILTIN = {
     "pop_counts": pop_counts,

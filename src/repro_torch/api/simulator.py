@@ -31,7 +31,9 @@ NEST's distribution scheme over the default ``torch.distributed`` process
 group (a world of one without one; ``n_devices=`` must not exceed the
 world): the session's state is this rank's shard, and in a group on a CUDA
 machine the session runs on the rank's card unless a device is given
-(``repro_torch.launch.mesh``).  A sharded session saves no checkpoint.
+(``repro_torch.launch.mesh``).  A sharded session's ``save``, ``restore``,
+``suspend`` and ``resume`` are collective: every rank calls them, and the
+checkpoint holds the world's global state in the reference's layout.
 """
 from __future__ import annotations
 
@@ -47,41 +49,22 @@ import torch
 from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api import probes as probes_mod
 from repro_torch.api import results as results_mod
-from repro_torch.api.backends import (Backend, copy_into, make_backend,
-                                      tree_map)
+from repro_torch.api.backends import Backend, make_backend, tree_map
 from repro_torch.api.results import BatchResult, RunResult
 from repro_torch.core import stimulus as stimulus_mod
 from repro_torch.core.connectivity import Connectome, build_connectome
+from repro_torch.core.device import session_device
 from repro_torch.core.engine import SimConfig
 from repro_torch.core.plasticity import PlasticState
-from repro_torch.launch import mesh
-
-
-def session_device(device=None, sharded: bool = False) -> torch.device:
-    """``device``, or ``cuda`` when None -- which raises without CUDA; for
-    a ``sharded`` session in a process group, this rank's card
-    (``launch.mesh.rank_device``).  A card is named with its index, as the
-    session's tensors report it."""
-    if device is None and sharded:
-        return mesh.rank_device(session_device())
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA card by default and none is "
-                "available; pass device='cpu' to run the plain PyTorch "
-                "versions of the kernels on the CPU")
-        device = "cuda"
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 class Simulator:
     """A simulation session: one network, one backend, many runs.
 
     ``config`` is a model config (``MicrocircuitConfig``); ``connectome``
-    skips the build.  ``backend`` is ``"fused"``, ``"instrumented"``,
+    skips the build, and with it ``config`` may be None (seed 0, no
+    presim).  ``sim_config`` replaces the ``SimConfig`` the model config
+    gives.  ``backend`` is ``"fused"``, ``"instrumented"``,
     ``"sharded"`` (with ``n_devices``, the world's size when None) or a
     :class:`~repro_torch.api.backends.Backend`.  ``plasticity`` is a rule
     (a registry kind name such as ``"pair_stdp"``, a spec dict or a
@@ -94,30 +77,35 @@ class Simulator:
     ``key`` is given, the session's ``torch.Generator``.
     """
 
-    def __init__(self, config, *, connectome: Optional[Connectome] = None,
-                 backend="fused", probes: Sequence = ("pop_counts",),
-                 device=None, plasticity=None, stimulus=None,
-                 key: Optional[int] = None,
-                 n_devices: Optional[int] = None, **overrides):
+    def __init__(self, config=None, *,
+                 connectome: Optional[Connectome] = None, backend="fused",
+                 probes: Sequence = ("pop_counts",), device=None,
+                 plasticity=None, stimulus=None, key: Optional[int] = None,
+                 n_devices: Optional[int] = None,
+                 sim_config: Optional[SimConfig] = None, **overrides):
+        if config is None and connectome is None:
+            raise ValueError("pass a model config or a built connectome")
         self.device = session_device(device, sharded=backend == "sharded")
         self.config = config
-        seed = int(config.seed)
+        seed = int(getattr(config, "seed", 0))
+        self._seed = seed
         if connectome is None:
             connectome = build_connectome(
                 scale=config.scale, n_scaling=config.n_scaling,
                 k_scaling=config.k_scaling, seed=seed, dt=config.dt)
         self.connectome = connectome
-        sim_config = SimConfig(
-            dt=config.dt, strategy=config.strategy,
-            spike_budget=config.spike_budget,
-            strict_delivery=config.strict_delivery,
-            stimulus=config.stimulus, kernels=config.kernels)
+        if sim_config is None:
+            sim_config = SimConfig(
+                dt=config.dt, strategy=config.strategy,
+                spike_budget=config.spike_budget,
+                strict_delivery=config.strict_delivery,
+                stimulus=config.stimulus, kernels=config.kernels)
         if overrides:
             sim_config = dataclasses.replace(sim_config, **overrides)
         if stimulus is not None:
             sim_config = dataclasses.replace(
                 sim_config, stimulus=stimulus_mod.resolve_timeline(stimulus))
-        self.t_presim = float(config.t_presim)
+        self.t_presim = float(getattr(config, "t_presim", 0.0))
         self.backend: Backend = make_backend(backend, plasticity=plasticity,
                                              n_devices=n_devices)
         self.plasticity = self.backend.plasticity
@@ -414,7 +402,7 @@ class Simulator:
         if seeds is None:
             if n_trials is None:
                 raise ValueError("pass n_trials or explicit seeds")
-            base = int(self.config.seed)
+            base = self._seed
             return [base + i for i in range(int(n_trials))]
         seeds = [int(s) for s in seeds]
         if n_trials is not None and len(seeds) != int(n_trials):
@@ -500,29 +488,28 @@ class Simulator:
 
     # -- checkpoints --------------------------------------------------------
 
-    def _package(self) -> dict:
+    def _package(self, state=None) -> dict:
+        """What a checkpoint holds: ``state`` (the session's when None) and
+        the session's counters."""
         return {
-            "state": self._state,
+            "state": self._state if state is None else state,
             "presim_done": np.asarray(int(self._presim_done), np.int64),
             "steps_done": np.asarray(self._steps_done, np.int64),
             "t_model_ms": np.asarray(self._t_model_ms, np.float64),
         }
 
-    def _require_checkpoints(self, what: str) -> None:
-        if not self.backend.checkpoints:
-            raise NotImplementedError(
-                f"cannot {what}: backend {self.backend.name!r} writes no "
-                f"checkpoint (its state is one rank's shard)")
-
     def save(self, directory: str, keep: int = 3) -> str:
         """Write the session (its state, generator and counters) to
         ``directory/step_<steps done>`` for :meth:`restore`; returns the
-        path."""
-        self._require_checkpoints("save")
+        path.  On the sharded backend every rank calls it: the checkpoint
+        holds the world's global state, which rank 0 writes."""
         self._require_state("save")
         from repro_torch.checkpoint import checkpointer
-        return checkpointer.save(self._package(), directory,
-                                 step=self._steps_done, keep=keep)
+        pkg = self._package(self.backend.checkpoint_state(self._state))
+        return self.backend.publish(
+            lambda: checkpointer.save(pkg, directory, step=self._steps_done,
+                                      keep=keep),
+            checkpointer.step_path(directory, self._steps_done))
 
     def suspend(self, directory: str, keep: int = 3) -> str:
         """Save the session, then release its state: a suspended session
@@ -551,16 +538,18 @@ class Simulator:
         be the saving session's: a schema, structure or shape that differs
         raises ``CheckpointMismatchError`` naming the leaf.  The stream
         probes' statistics restart empty here (they are not saved): they
-        then cover what runs after the restore, never a stale window."""
-        self._require_checkpoints("restore")
+        then cover what runs after the restore, never a stale window.  On
+        the sharded backend every rank calls it and takes its shard of the
+        world's state."""
         self._require_state("restore (use resume() on a suspended session)")
         self._ensure_built()
         from repro_torch.checkpoint import checkpointer
-        pkg = checkpointer.restore(directory, self._package(), step=step)
-        copy_into(self._state, pkg["state"])
-        restored = pkg["state"] if self.plasticity is None \
-            else pkg["state"][0]
-        self._generator.set_state(restored.generator.get_state())
+        pkg = checkpointer.restore(
+            directory,
+            self._package(self.backend.checkpoint_template(self._state)),
+            step=step)
+        self._generator.set_state(
+            self.backend.restore_state(self._state, pkg["state"]))
         self._presim_done = bool(int(pkg["presim_done"]))
         self._steps_done = int(pkg["steps_done"])
         self._t_model_ms = float(pkg["t_model_ms"])

@@ -109,11 +109,16 @@ def _dtypes(tree: Any) -> dict:
     return {name: _dtype(leaf) for name, leaf in _items(tree)}
 
 
+def step_path(directory: str, step: int) -> str:
+    """Where the checkpoint of ``step`` lives under ``directory``."""
+    return os.path.join(directory, f"step_{step:08d}")
+
+
 def _write_checkpoint(directory: str, arrays: dict, dtypes: dict,
                       step: int, keep: int) -> str:
     """Write the arrays and the manifest, publish atomically, drop all but
     the newest ``keep``."""
-    path = os.path.join(directory, f"step_{step:08d}")
+    path = step_path(directory, step)
     tmp = path + ".tmp"
     os.makedirs(tmp, exist_ok=True)
     np.savez(os.path.join(tmp, "host_0.npz"), **arrays)
@@ -258,7 +263,7 @@ def restore(directory: str, target: Any, step: Optional[int] = None) -> Any:
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {directory}")
-    path = os.path.join(directory, f"step_{step:08d}")
+    path = step_path(directory, step)
     items = list(_items(target))
     _validate_manifest(path, {name: (_shape(leaf), _dtype(leaf))
                               for name, leaf in items})
@@ -271,5 +276,4 @@ def _gc(directory: str, keep: int) -> None:
     steps = sorted(int(m.group(1)) for d in os.listdir(directory)
                    if (m := re.fullmatch(r"step_(\d+)", d)))
     for s in steps[:-keep] if keep else []:
-        shutil.rmtree(os.path.join(directory, f"step_{s:08d}"),
-                      ignore_errors=True)
+        shutil.rmtree(step_path(directory, s), ignore_errors=True)

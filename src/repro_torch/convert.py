@@ -17,7 +17,9 @@ JAX package's global ``ShardedTables`` and ``ShardedSimState`` under
 ``SHARDED_KEYS`` (tables ``[N_pad+1, n_dev * k_loc]``, ``k_ext``, ``i_dc``
 and the neuron state ``[N_pad]``, the ring ``[D, 2, N_pad + n_dev]``: each
 rank's ``n_loc + 1`` columns end to end, ``overflow`` one per rank) into
-one rank's shard of the port's, and the shards of all ranks back.
+one rank's shard of the port's, and the shards of all ranks back;
+``sharded_state_to_torch`` takes the state alone (a sharded session's
+checkpoint holds this layout).
 
 The LM layers' weights (``layer_params_to_torch`` /
 ``layer_params_to_numpy``) are a nested dict of arrays, the value tree
@@ -108,28 +110,50 @@ def sharded_to_torch(arrays: Dict[str, np.ndarray], rank: int, n_dev: int,
     missing = [k for k in SHARDED_KEYS if k not in arrays]
     if missing:
         raise KeyError(f"missing arrays {missing}")
-    n_pad = np.asarray(arrays["V"]).shape[0]
-    n_loc, cols = n_pad // n_dev, np.asarray(arrays["targets"]).shape[1]
-    if n_loc * n_dev != n_pad or cols % n_dev or not 0 <= rank < n_dev:
-        raise ValueError(f"rank {rank} of {n_dev}: N_pad={n_pad} and "
-                         f"{cols} table columns do not split evenly")
-    k_loc, lo = cols // n_dev, rank * n_loc
-
-    def t(name, dtype, part=None):
-        a = np.asarray(arrays[name], dtype=dtype)
-        a = a if part is None else a[part]
-        return torch.from_numpy(np.array(a, copy=True)).to(device)
+    state = sharded_state_to_torch(arrays, rank, n_dev, device, generator)
+    cols = np.asarray(arrays["targets"]).shape[1]
+    if cols % n_dev:
+        raise ValueError(f"rank {rank} of {n_dev}: {cols} table columns do "
+                         f"not split evenly")
+    k_loc, n_loc = cols // n_dev, state.V.shape[0]
     block = (slice(None), slice(rank * k_loc, (rank + 1) * k_loc))
-    own = slice(lo, lo + n_loc)
-    ring = (slice(None), slice(None),
-            slice(rank * (n_loc + 1), (rank + 1) * (n_loc + 1)))
-    overflow = np.asarray(arrays["overflow"], np.int32).reshape(-1)
+    own = slice(rank * n_loc, (rank + 1) * n_loc)
+    t = lambda name, dtype, part: _copy_to(arrays[name], dtype, part, device)
     tables = ShardedTables(
         targets=t("targets", np.int32, block),
         weights=t("weights", np.float32, block),
         dbins=t("dbins", np.int32, block), k_ext=t("k_ext", np.float32, own),
         i_dc=t("i_dc", np.float32, own))
-    state = ShardedSimState(
+    return tables, state
+
+
+def _copy_to(a, dtype, part, device) -> torch.Tensor:
+    a = np.asarray(a, dtype=dtype)
+    a = a if part is None else a[part]
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def sharded_state_to_torch(arrays: Dict[str, np.ndarray], rank: int,
+                           n_dev: int, device,
+                           generator: Optional[torch.Generator] = None
+                           ) -> ShardedSimState:
+    """The state keys of the reference's global sharded layout (``V``,
+    ``I_ex``, ``I_in``, ``refrac``, ``ring``, ``t``, ``overflow``) -> rank
+    ``rank``'s ``ShardedSimState`` of a world of ``n_dev``, on ``device``
+    (copies): its ``n_loc`` neurons, its ``n_loc + 1`` ring columns, and
+    its overflow slot (the only one when one is given)."""
+    n_pad = np.asarray(arrays["V"]).shape[0]
+    n_loc = n_pad // n_dev
+    if n_loc * n_dev != n_pad or not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} of {n_dev}: N_pad={n_pad} does not "
+                         f"split evenly")
+    own = slice(rank * n_loc, (rank + 1) * n_loc)
+    ring = (slice(None), slice(None),
+            slice(rank * (n_loc + 1), (rank + 1) * (n_loc + 1)))
+    overflow = np.asarray(arrays["overflow"], np.int32).reshape(-1)
+    t = lambda name, dtype, part=None: _copy_to(arrays[name], dtype, part,
+                                                device)
+    return ShardedSimState(
         V=t("V", np.float32, own), I_ex=t("I_ex", np.float32, own),
         I_in=t("I_in", np.float32, own), refrac=t("refrac", np.int32, own),
         ring=t("ring", np.float32, ring), t=t("t", np.int32).reshape(()),
@@ -137,7 +161,6 @@ def sharded_to_torch(arrays: Dict[str, np.ndarray], rank: int, n_dev: int,
         overflow=torch.tensor(int(overflow[rank if overflow.size > 1
                                            else 0]),
                               dtype=torch.int32, device=device))
-    return tables, state
 
 
 def sharded_to_numpy(shards) -> Dict[str, np.ndarray]:

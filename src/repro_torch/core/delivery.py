@@ -6,9 +6,9 @@ and ``dense``.  Every strategy writes into ``ring[D, 2, N+1]`` (channel 0/1
 entries), in place.  ``event`` and ``ell`` use the padded ELL
 out-adjacency with one sentinel source row at index N.
 
-* ``event`` -- the reference's ``deliver_event``: ordered id compaction,
-  row gather and one ``index_add_`` (the JAX package leaves it to XLA, so
-  the port leaves it to PyTorch).
+* ``event`` -- the reference's ``deliver_event`` (:func:`deliver_event`):
+  ordered id compaction, row gather and one ``index_add_`` (the JAX
+  package leaves it to XLA, so the port leaves it to PyTorch).
 * ``ell`` -- the same tables, rows padded to ``block_k = 128``; delivered
   by kernel K2 (``kernels/ell_deliver``) when the resolved policy says
   ``deliver="kernel"``, by the plain version of ``event`` otherwise
@@ -85,6 +85,20 @@ def make_event_tables(targets: np.ndarray, weights: np.ndarray,
         return torch.from_numpy(out).to(device)
     return EventTables(targets=padded(targets, n), weights=padded(weights, 0),
                        dbins=padded(dbins, 1))
+
+
+def deliver_event(ring: torch.Tensor, tables: EventTables,
+                  spiked: torch.Tensor, t, n_exc: int, spike_budget: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Event-driven delivery, the ``event`` strategy's: the lowest
+    ``spike_budget`` spiking ids' rows added into ``ring`` (in place) at
+    slot ``(t + dbin) % D``, channel by the source's side of ``n_exc``.
+    Returns ``(ring, n_overflow)``, the reference's
+    (``repro/core/delivery.py:110``)."""
+    ring, _, overflow = ell_deliver_plain(ring, tables.targets,
+                                          tables.weights, tables.dbins,
+                                          spiked, t, n_exc, spike_budget)
+    return ring, overflow
 
 
 def deliver_dense(ring: torch.Tensor, tables: DenseTables,

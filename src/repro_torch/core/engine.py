@@ -18,11 +18,18 @@ stimulus gates are tensor functions of it, and each step advances it with
 an op of its own.  Nothing on a step's path reads a device value back to
 the host, so a run of steps can be captured in a CUDA graph
 (``repro_torch.api.backends``).
+
+The reference's functional entry points are here too, deprecated as they
+are there: ``make_step`` (the split update + deliver step), ``simulate``
+(a loop of it) and ``PhaseRunner`` (over the instrumented backend).  New
+code drives ``repro_torch.api.Simulator``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Optional
+import types
+import warnings
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
@@ -30,7 +37,9 @@ from repro_torch.core import delivery as dlv
 from repro_torch.core import kernel_policy as kpol
 from repro_torch.core import stimulus as stim
 from repro_torch.core.connectivity import Connectome
+from repro_torch.core.device import session_device
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
+from repro_torch.core.params import NeuronParams
 from repro_torch.kernels.lif_deliver import slot_index
 
 
@@ -46,6 +55,19 @@ class SimConfig:
     state_dtype: torch.dtype = torch.float32
     stimulus: Optional[tuple] = None   # None -> poisson_background (8 Hz)
     kernels: Optional[Any] = None      # mode string | resolved KernelPolicy
+    record: str = "pop_counts"         # make_step / simulate only:
+                                       # "spikes" | "pop_counts" | "none"
+
+
+def force_split_step(cfg: SimConfig) -> SimConfig:
+    """Pin a resolved policy's step to the phase-split loop (its other
+    choices untouched): for the per-step-dispatch loops, which have no
+    one-kernel path."""
+    pol = kpol.policy_of(cfg)
+    if pol is not None and pol.step == "fused":
+        cfg = dataclasses.replace(
+            cfg, kernels=dataclasses.replace(pol, step="split"))
+    return cfg
 
 
 def resolve_sim_config(cfg: SimConfig, c: Connectome, device,
@@ -213,3 +235,141 @@ def deliver_phase(state: SimState, net: Network, cfg: SimConfig,
         state.ring, net.tables, spiked, state.t, n_exc, cfg)
     return SimState(state.neuron, ring, state.t + 1, state.generator,
                     state.overflow + ovf)
+
+
+# ---------------------------------------------------------------------------
+# The reference's functional entry points (deprecated there and here)
+# ---------------------------------------------------------------------------
+
+def _background_drive(net: Network, cfg: SimConfig) -> stim.Drive:
+    """The default timeline, ``PoissonBackground()``, compiled against the
+    network's ``k_ext`` (all the stimulus reads of a connectome): the
+    reference's inline drive (``drive=None``)."""
+    sources = types.SimpleNamespace(k_ext=net.k_ext.cpu().numpy())
+    return stim.compile_drive((stim.PoissonBackground(),), sources, cfg,
+                              None, net.k_ext.device)
+
+
+def make_step(net: Network, prop: Propagators, cfg: SimConfig,
+              w_ext: float, n: int, n_exc: int, n_pops: int = 8,
+              record_fn: Optional[Callable] = None,
+              drive: Optional[stim.Drive] = None):
+    """The split update + deliver step (``repro/core/engine.py:330-361``):
+    ``step(state, _) -> (state', out)``, the ring updated in place.
+
+    ``out`` is ``record_fn(state', spiked)`` when given, else by
+    ``cfg.record``: the spike vector, the population counts (a segment sum
+    over ``net.pop_of``, ``n_pops`` long) or a 0-d zero.  ``drive`` is a
+    compiled stimulus timeline; None draws the default background from
+    ``net.k_ext``.  ``cfg`` must be resolved (``resolve_sim_config``): an
+    unresolved kernel policy raises rather than run the plain versions on
+    the card.
+    """
+    if kpol.policy_of(cfg) is None:
+        raise ValueError(
+            f"make_step needs a resolved SimConfig (its kernels are "
+            f"{cfg.kernels!r}); call repro_torch.core.engine."
+            f"resolve_sim_config(cfg, connectome, device) first")
+    if drive is None:
+        drive = _background_drive(net, cfg)
+    pop_of = net.pop_of.to(torch.int64)
+
+    def step(state: SimState, _=None):
+        state, spiked = update_phase(state, net, prop, cfg, w_ext, n, drive)
+        state = deliver_phase(state, net, cfg, spiked, n_exc)
+        if record_fn is not None:
+            out = record_fn(state, spiked)
+        elif cfg.record == "spikes":
+            out = spiked
+        elif cfg.record == "pop_counts":
+            out = torch.zeros(n_pops, dtype=torch.int32,
+                              device=spiked.device).index_add_(
+                0, pop_of, spiked.to(torch.int32))
+        else:
+            out = torch.zeros((), dtype=torch.int32, device=spiked.device)
+        return state, out
+    return step
+
+
+def _generator(key, device) -> torch.Generator:
+    """``key`` as the session's generator: a ``torch.Generator`` as it is,
+    an int seed (0 when None) in a new one on ``device``."""
+    if isinstance(key, torch.Generator):
+        return key
+    return torch.Generator(device=device).manual_seed(
+        0 if key is None else int(key))
+
+
+def simulate(c: Connectome, t_sim_ms: float, cfg: SimConfig,
+             neuron: Optional[NeuronParams] = None, key=None,
+             net: Optional[Network] = None,
+             state: Optional[SimState] = None, device=None):
+    """Build (unless ``net`` and ``state`` are given), run ``t_sim_ms`` of
+    model time through :func:`make_step`, and return ``(final_state,
+    recorded [n_steps, ...], net)`` (``repro/core/engine.py:370-403``).
+
+    The policy's step is pinned to the split loop (K1 and K2 on the card
+    for ``ell``).  The timeline is compiled; the default one
+    (``cfg.stimulus`` None) is ``poisson_background``, which draws what the
+    reference's inline background draws.  ``key`` is an int seed or a ``torch.Generator``; a
+    given ``state`` keeps its own generator, and its ring is updated in
+    place.  ``device`` is the card unless the caller asks for the CPU.
+
+    .. deprecated:: use ``repro_torch.api.Simulator``.
+    """
+    warnings.warn(
+        "repro_torch.core.engine.simulate is deprecated; use "
+        "repro_torch.api.Simulator", DeprecationWarning, stacklevel=2)
+    device = session_device(device)
+    neuron = neuron or NeuronParams()
+    cfg = force_split_step(resolve_sim_config(cfg, c, device))
+    drive = stim.compile_drive(cfg.stimulus, c, cfg, neuron, device)
+    prop = Propagators.make(neuron, cfg.dt)
+    if net is None:
+        net = prepare_network(c, cfg, device)
+    if state is None:
+        state = init_state(net, c.d_max_bins, _generator(key, device),
+                           cfg.state_dtype)
+    step = make_step(net, prop, cfg, c.w_ext, c.n_total, c.n_exc,
+                     n_pops=len(c.pop_sizes), drive=drive)
+    recorded = []
+    for _ in range(int(round(t_sim_ms / cfg.dt))):
+        state, out = step(state)
+        recorded.append(out)
+    recorded = torch.stack(recorded) if recorded \
+        else torch.empty((0,), dtype=torch.int32, device=device)
+    return state, recorded, net
+
+
+class PhaseRunner:
+    """The cycle with each phase synchronised and timed.
+
+    .. deprecated:: a shim over ``repro_torch.api.backends.
+       InstrumentedBackend`` (``repro/core/engine.py:410-436``); use
+       ``Simulator(cfg, backend="instrumented")``, whose
+       ``RunResult.timers`` carry the same per-phase seconds.
+    """
+
+    def __init__(self, c: Connectome, cfg: SimConfig,
+                 neuron: Optional[NeuronParams] = None, key=None,
+                 device=None):
+        warnings.warn(
+            "PhaseRunner is deprecated; use repro_torch.api.Simulator with "
+            "backend='instrumented'", DeprecationWarning, stacklevel=2)
+        from repro_torch.api.backends import InstrumentedBackend
+        device = session_device(device)
+        self._backend = InstrumentedBackend()
+        self._backend.build(c, cfg, device, neuron=neuron)
+        self.cfg = cfg
+        self.prop = self._backend.prop
+        self.net = self._backend.net
+        self.state = self._backend.init(_generator(key, device))
+        self.n, self.n_exc = c.n_total, c.n_exc
+        self.w_ext = c.w_ext
+
+    def step_timed(self, timers: dict) -> torch.Tensor:
+        """One update + deliver cycle; each phase's seconds are added to
+        ``timers["update"]`` and ``timers["deliver"]``.  Returns the step's
+        spike vector."""
+        self.state, spiked = self._backend.step_timed(self.state, timers)
+        return spiked

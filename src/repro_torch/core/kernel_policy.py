@@ -35,6 +35,11 @@ card", so its ``auto`` takes K5 for ``dense`` on ``cuda``, where the
 reference's ``auto`` on a TPU takes the GEMM.  A wrapper given CPU tensors
 runs its plain version, so ``fused`` and ``split`` resolved on the CPU run
 the plain versions there.
+
+A policy made by hand (``KernelPolicy(mode="split")``, or ``as_policy`` of
+a mode string) is unresolved: ``resolve`` fills it by its mode.  The
+reference's per-op overrides (``lif=``, ``deliver=``) and ``interpret``
+have no counterpart; nor has ``FUSED_MAX_RING_BYTES``, a TPU VMEM limit.
 """
 from __future__ import annotations
 
@@ -48,13 +53,25 @@ MODES = ("auto", "fused", "split", "reference")
 
 @dataclasses.dataclass(frozen=True)
 class KernelPolicy:
-    """A resolved kernel policy; ``resolve`` makes it."""
-    mode: str        # one of MODES, as asked for
-    step: str        # "fused" (K3) | "split" (update + deliver phases)
-    kernels: bool    # the hand-written kernels, else the plain versions
-    deliver: str     # what scatters spikes: "kernel" (K2/K3, K5) |
-                     # "index_add" | "matmul" (dense GEMM)
-    plastic: Optional[str] = None   # the plasticity rule's kind, or None
+    """A kernel policy; ``resolve`` fills every field of an unresolved
+    one (``step`` None)."""
+    mode: str = "auto"               # one of MODES, as asked for
+    step: Optional[str] = None       # "fused" (K3) | "split" (update +
+                                     # deliver phases)
+    kernels: Optional[bool] = None   # the hand-written kernels, else the
+                                     # plain versions
+    deliver: Optional[str] = None    # what scatters spikes: "kernel"
+                                     # (K2/K3, K5) | "index_add" | "matmul"
+                                     # (dense GEMM)
+    plastic: Optional[str] = None    # the plasticity rule's kind, or None
+
+    def __post_init__(self):
+        if self.mode not in MODES:
+            raise ValueError(f"kernel mode {self.mode!r} not in {MODES}")
+
+    @property
+    def resolved(self) -> bool:
+        return self.step is not None
 
     def describe(self) -> str:
         """One-line form, e.g. ``auto[step=fused,lif=kernel,deliver=kernel]``
@@ -82,19 +99,28 @@ def fused_eligible(strategy: str, state_dtype,
     return True, ""
 
 
+def as_policy(kernels: Union[None, str, KernelPolicy]) -> KernelPolicy:
+    """Normalise the ``SimConfig.kernels`` field to a KernelPolicy (a mode
+    string or None to an unresolved one)."""
+    if kernels is None:
+        return KernelPolicy()
+    if isinstance(kernels, str):
+        return KernelPolicy(mode=kernels)
+    if isinstance(kernels, KernelPolicy):
+        return kernels
+    raise TypeError(f"kernels= takes a mode string {MODES} or a "
+                    f"KernelPolicy, got {type(kernels).__name__}")
+
+
 def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
             state_dtype, device, plastic: Optional[str] = None
             ) -> KernelPolicy:
     """Resolve a mode (None means ``auto``) against the session's device.
     Idempotent: a resolved policy is returned as it is."""
-    if isinstance(kernels, KernelPolicy):
-        return kernels
-    mode = "auto" if kernels is None else kernels
-    if not isinstance(mode, str):
-        raise TypeError(f"kernels= takes a mode string {MODES}, "
-                        f"got {type(mode).__name__}")
-    if mode not in MODES:
-        raise ValueError(f"kernel mode {mode!r} not in {MODES}")
+    pol = as_policy(kernels)
+    if pol.resolved:
+        return pol
+    mode = pol.mode
     on_cuda = torch.device(device).type == "cuda"
     eligible, why = fused_eligible(strategy, state_dtype, plastic)
     if mode == "fused" and not eligible:
@@ -114,4 +140,4 @@ def resolve(kernels: Union[None, str, KernelPolicy], *, strategy: str,
 def policy_of(cfg) -> Optional[KernelPolicy]:
     """The resolved policy carried by a SimConfig, or None."""
     pol = getattr(cfg, "kernels", None)
-    return pol if isinstance(pol, KernelPolicy) else None
+    return pol if isinstance(pol, KernelPolicy) and pol.resolved else None

@@ -151,6 +151,13 @@ class InputParams:
     bg_rate: float = 8.0            # Hz per external synapse
 
 
+@dataclasses.dataclass(frozen=True)
+class SimParams:
+    dt: float = 0.1            # ms resolution; also the min delay
+    t_presim: float = 100.0    # ms discarded transient (paper: 0.1 s)
+    t_sim: float = 1000.0      # ms of biological time
+
+
 def psc_from_psp(psp: float, neuron: NeuronParams) -> float:
     """Peak PSC amplitude (pA) producing a PSP of `psp` mV (exp-PSC synapse).
 

@@ -18,17 +18,19 @@ a step are a re-wrap with no copy; the reference keeps a flat
 copy at full scale.  ``in_sources`` is not stored: it equals
 ``in_syn_idx // K`` on every entry (the fill ``N * K`` gives ``N``).
 
-The bound object (what ``api.backends.FusedBackend`` consumes) has
-``tables``, ``plastic_mask`` (``[N+1, K]`` bool), ``init() -> state`` and
-``step(state, spiked, ids, clip_all) -> state`` (one whole update for a
-step's spike vector and the ids its delivery compacted; ``clip_all`` marks
-a run's first step).  The deprecated ``simulate_plastic`` and
-``Simulator(stdp=...)`` are not ported.
+The bound object (:class:`BoundPlasticity`, what ``api.backends.
+FusedBackend`` consumes) has ``tables``, ``plastic_mask`` (``[N+1, K]``
+bool), ``init() -> state`` and ``step(state, spiked, ids, clip_all) ->
+state`` (one whole update for a step's spike vector and the ids its
+delivery compacted; ``clip_all`` marks a run's first step).  The
+deprecated ``simulate_plastic`` is a shim over ``Simulator(plasticity=
+...)``, as in the reference; ``Simulator(stdp=...)`` is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+import warnings
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +44,11 @@ _W_REF_FULL = 87.8     # pA reference weight at full scale (0.15 mV PSP)
 
 @dataclasses.dataclass(frozen=True)
 class STDPConfig:
-    """Parameters of the pair-STDP update, with ``w_ref`` already scaled
-    (``PairSTDP.bind`` makes one)."""
+    """Parameters of the pair-STDP update.  The one a bound rule runs has
+    ``w_ref`` scaled by the connectome's external weight
+    (``PairSTDP.scaled``); ``PairSTDP.from_stdp_config`` and
+    ``simulate_plastic`` take one with the full-scale ``w_ref``, as the
+    reference's do."""
     tau_plus: float = 20.0     # ms, pre-trace
     tau_minus: float = 20.0    # ms, post-trace
     A_plus: float = 0.01
@@ -160,6 +165,14 @@ def stdp_pot_clip(w: torch.Tensor, x_pre: torch.Tensor, ids: torch.Tensor,
         clip_all=clip_all)[0]
 
 
+def plastic_weight_view(ps: PlasticState, n: int, k_out: int
+                        ) -> torch.Tensor:
+    """The ``[N+1, K_out]`` weight table: a view of the live table's first
+    ``k_out`` columns (the reference slices its flat array,
+    ``repro/core/plasticity.py:237``)."""
+    return ps.weights[:n + 1, :k_out]
+
+
 def mean_plastic_weight(weights: torch.Tensor,
                         mask: torch.Tensor) -> torch.Tensor:
     """Mean weight over the plastic entries (0-d float32 on the device)."""
@@ -223,14 +236,34 @@ class PlasticityRule:
         return cls(**d)
 
 
+class BoundPlasticity:
+    """The shape of ``rule.bind(...)``'s result (duck-typed: a custom rule
+    may return any object with these members)."""
+
+    tables: Any = None
+    plastic_mask: Optional[torch.Tensor] = None
+
+    def init(self) -> Any:
+        """A fresh plastic state."""
+        raise NotImplementedError
+
+    def step(self, state, spiked: torch.Tensor, ids: torch.Tensor,
+             clip_all: bool = True):
+        """One whole update for a step's spikes and the ids its delivery
+        compacted."""
+        raise NotImplementedError
+
+
 def resolve_rule(spec) -> PlasticityRule:
     """Normalise a rule spec: a registry kind name, a spec dict (``{"kind":
-    ..., **params}``), a :class:`PlasticityRule`, or ``True`` (the default
-    :class:`PairSTDP`)."""
+    ..., **params}``), a :class:`PlasticityRule`, ``True`` (the default
+    :class:`PairSTDP`) or an :class:`STDPConfig`."""
     if isinstance(spec, PlasticityRule):
         return spec
     if spec is True:
         return PairSTDP()
+    if isinstance(spec, STDPConfig):
+        return PairSTDP.from_stdp_config(spec)
     if isinstance(spec, str):
         if spec not in REGISTRY:
             raise ValueError(f"unknown plasticity rule {spec!r}; "
@@ -239,14 +272,14 @@ def resolve_rule(spec) -> PlasticityRule:
     if isinstance(spec, dict):
         return PlasticityRule.from_dict(spec)
     raise TypeError(f"plasticity must be a rule kind name, spec dict, "
-                    f"PlasticityRule or True; got {type(spec)}")
+                    f"PlasticityRule, True or STDPConfig; got {type(spec)}")
 
 
 # ---------------------------------------------------------------------------
 # Registered implementations
 # ---------------------------------------------------------------------------
 
-class _BoundPairSTDP:
+class _BoundPairSTDP(BoundPlasticity):
     """Pair STDP lowered against a connectome (scaled config + tables)."""
 
     def __init__(self, cfg: STDPConfig, tables: PlasticTables,
@@ -295,6 +328,13 @@ class PairSTDP(PlasticityRule):
     w_max_factor: float = 3.0
     dt: Optional[float] = None
 
+    @classmethod
+    def from_stdp_config(cls, cfg: STDPConfig) -> "PairSTDP":
+        return cls(tau_plus=cfg.tau_plus, tau_minus=cfg.tau_minus,
+                   A_plus=cfg.A_plus, A_minus=cfg.A_minus, lr=cfg.lr,
+                   w_ref=cfg.w_ref, w_max_factor=cfg.w_max_factor,
+                   dt=cfg.dt)
+
     def scaled(self, c, dt: float) -> STDPConfig:
         """The config ``bind`` runs: ``w_ref`` scaled by ``c.w_ext``."""
         return STDPConfig(
@@ -314,3 +354,35 @@ class PairSTDP(PlasticityRule):
         return _BoundPairSTDP(self.scaled(c, cfg.dt),
                               build_plastic_tables(tables, c.n_exc),
                               tables.weights, pol.kernels)
+
+
+# ---------------------------------------------------------------------------
+# Deprecated front end
+# ---------------------------------------------------------------------------
+
+def simulate_plastic(c, t_sim_ms: float, sim_cfg, stdp_cfg: STDPConfig,
+                     key: Optional[int] = None, device=None):
+    """The microcircuit with live E->E STDP: ``(final_sim_state,
+    final_plastic_state, (pop_counts [T, n_pops], mean plastic weight
+    [T]))``, the recordings as numpy.
+
+    .. deprecated:: a shim over ``repro_torch.api.Simulator(plasticity=
+       ...)`` (``repro/core/plasticity.py:424-449``), which adds chunked
+       runs, checkpoints and stream probes on the same trajectory.  ``key``
+       is the session's int seed; ``device`` is the card unless the caller
+       asks for the CPU.
+    """
+    warnings.warn(
+        "simulate_plastic is deprecated; use repro_torch.api.Simulator("
+        "plasticity='pair_stdp') -- the session API composes the same "
+        "rule with run_chunked, checkpointing and stream probes",
+        DeprecationWarning, stacklevel=2)
+    from repro_torch.api.simulator import Simulator
+    sim = Simulator(connectome=c, sim_config=sim_cfg,
+                    plasticity=PairSTDP.from_stdp_config(stdp_cfg),
+                    probes=("pop_counts", "mean_plastic_weight"), key=key,
+                    device=device)
+    res = sim.run(t_sim_ms)
+    sim_f, ps_f = sim.state
+    return sim_f, ps_f, (res.data["pop_counts"],
+                         res.data["mean_plastic_weight"])

@@ -18,6 +18,10 @@ holds this with the :mod:`~repro_torch.serve.compile_cache` counters)::
     s1.resume()                            # bitwise continuation
     mgr.destroy(s1.id)
 
+A scenario on ``backend="sharded"`` is served as a world of one on the
+server's card (its pool key names the backend); a server inside a process
+group of more than one rank refuses it at create.
+
 What a suspend frees.  A suspended session holds no device tensor of its
 own; its checkpoint (``repro_torch.checkpoint``) is on disk.  The
 backend's tables, graphs and static buffers stay, warm for every session
@@ -43,6 +47,8 @@ import threading
 import time
 from typing import Any, Dict, List, Optional, Union
 
+import torch.distributed as dist
+
 from repro_torch.analysis.sanitize import RecompileGuard
 from repro_torch.api.backends import make_backend
 from repro_torch.api.experiment import Experiment
@@ -50,6 +56,7 @@ from repro_torch.api.simulator import session_device
 from repro_torch.core import stimulus as stimulus_mod
 from repro_torch.core.connectivity import build_connectome
 from repro_torch.core.engine import SimConfig
+from repro_torch.launch import mesh
 from repro_torch.serve.compile_cache import (ExecutableCache, cache_stats,
                                              fingerprint)
 
@@ -73,6 +80,19 @@ def _experiment_from(spec) -> Experiment:
         return Experiment.from_json(os.fspath(spec))
     raise TypeError(f"session spec must be an Experiment, a scenario "
                     f"dict or a JSON path, got {type(spec)}")
+
+
+def _check_servable(exp) -> None:
+    """A sharded scenario is served as a world of one on the server's
+    card: inside a process group of more ranks it is refused (every rank
+    would have to follow each request)."""
+    if exp.backend == "sharded" and mesh.group_initialized() \
+            and dist.get_world_size() > 1:
+        raise ValueError(
+            f"backend 'sharded' is served as a world of one, but this "
+            f"server runs in a process group of {dist.get_world_size()} "
+            f"ranks, each of which would have to follow every request; "
+            f"serve it from a process outside the group")
 
 
 def build_key(exp) -> str:
@@ -278,6 +298,7 @@ class SessionManager:
         one scenario share its graphs, as ``run_batch`` trials do.
         """
         exp = _experiment_from(spec)
+        _check_servable(exp)
         key = None if seed is None else int(seed)
         if session_id is not None and (
                 not isinstance(session_id, str)

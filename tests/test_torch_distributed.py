@@ -22,7 +22,8 @@ as XLA flushes them (``tests/test_torch_simulator.py``).
    under ``dc()`` the world of one's registry and counts, bitwise; under
    the background, two runs from one seed agree and every rank records
    the same counts.
-5. The refusals, with the reference's exception types and words.
+5. The refusals, with the reference's exception types and words.  (A
+   sharded session's checkpoints: ``tests/test_torch_sharded_checkpoint.py``.)
 """
 import dataclasses
 import os
@@ -524,24 +525,14 @@ REFUSALS = {
                       dict(probes=("voltage",))),
     "n_devices": (ValueError, "n_devices=2 > available 1",
                   dict(n_devices=2)),
-    "save": (NotImplementedError, "sharded", "save"),
     "localize_dense": (NotImplementedError, "'dense' has no shard",
                        "localize"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSALS))
-def test_refusals(connectome, tmp_path, case):
+def test_refusals(connectome, case):
     exc, words, how = REFUSALS[case]
-    if how == "save":
-        sim = Simulator(CFG, connectome=connectome, backend="sharded",
-                        device="cpu")
-        with pytest.raises(exc, match=words):
-            sim.save(str(tmp_path))
-        with pytest.raises(exc, match=words):
-            sim.run_chunked(0.2, 0.1, checkpoint_dir=str(tmp_path))
-        assert not any(tmp_path.iterdir())
-        return
     if how == "localize":
         with pytest.raises(exc, match=words):
             dlv.get_strategy("dense").localize(connectome, 2)
