@@ -58,6 +58,20 @@ Phases, each on its own line; any failed check exits non-zero:
    one's) and ``[run_chunked]`` (5 chunks of 10 ms: the graph cache's
    misses the same after each, the population counts equal to one
    50 ms run's from the same state, the state as in ``[graph_static]``);
+   then the ``[analysis]`` lines of the main path's session:
+   ``[graph_contract] path=static`` (GC001-GC004 of
+   ``repro_torch.analysis.graph_contract.check_graphed``: warm runs of
+   150 and 300 steps are graph replays only, as many as the cache key
+   implies, with the same eager work around them, under
+   ``torch.cuda.set_sync_debug_mode("error")``; the census of one eager
+   step within the cast budget, with no host sync and no float64 tensor;
+   K3 once a step; no device-to-host copy and no float64 kernel in one
+   replayed body), ``[step_census]`` (the profiler's table of that body:
+   each kernel's launches and device µs a step, their sum against the
+   body replay's event time and the run's graphed ms a step) and
+   ``[sanitize]`` (a warm 100-step run under ``sanitize()`` raises
+   nothing; the same run with a NaN arrival in the ring slot that step 37
+   reads raises ``FloatingPointError`` at step 37, in ``I_ex``);
 6. a 100 ms run of the split path, which launches K1 and K2, and
    ``[graph_split]``, as ``[graph_static]``;
 7. the plastic path at ``--scale`` with ``plasticity="pair_stdp"``: the
@@ -69,8 +83,9 @@ Phases, each on its own line; any failed check exits non-zero:
    plastic weight before and after (outside the timed window); 200
    profiled steps, as in 5; ``[graph_plastic]`` (as ``[graph_static]``,
    against the eager split plastic loop, the run's head steps and
-   whole-table clip included; the weights and traces exact) and
-   ``[plastic_path_eager]``;
+   whole-table clip included; the weights and traces exact),
+   ``[plastic_path_eager]`` and ``[graph_contract] path=plastic`` (as
+   for the static path; K4 and ``stdp_update`` once a step);
 8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
    back-to-back call time from CUDA events (``call_ms``); for K3 and K4
@@ -209,6 +224,12 @@ Phases, each on its own line; any failed check exits non-zero:
    300 steps from one state, every tensor bitwise (K1 and K5 add in a
    fixed order; the eager session is built once the graphed one is
    freed, two tables not fitting the card), and ``[dense_path_eager]``;
+   and, before (e), ``[dense_sharded]``: ``distributed.make_dense_step``
+   as a world of one over an NCCL group of one (a ``(1, 1)`` host mesh)
+   on the dense path's table, 300 steps under the 8 Hz background: K5
+   launched exactly once a step and nothing else, every tensor and count
+   bitwise the same steps' with K5's plain version from the same state
+   and generator state, ms a step;
 11. K6 ``flash_attention`` and the LM layers at Qwen3-32B widths
    (``d_model`` 5120, 64 query and 8 KV heads of 128, ``d_ff`` 25600,
    qk-norm, rope theta 1e6; the Hugging Face model card Qwen/Qwen3-32B),
@@ -278,7 +299,13 @@ Phases, each on its own line; any failed check exits non-zero:
    own scale (0.02, ``event``: K1 and ``stdp_update``), its weights and
    traces exact; ``[serve_smoke]``, ``python -m repro_torch.serve
    --smoke examples/scenarios/smoke_background.json`` in a process of its
-   own on the card, which must exit 0 (its output printed).
+   own on the card, which must exit 0 (its output printed);
+13. ``[dryrun]``: ``repro_torch.launch.dryrun``'s four cells (``event``
+   and ``dense`` on the ``pod1`` and ``pod2`` layouts, on ``meta``
+   tensors), and ``[dryrun_world_of_one]``: the argument bytes the dry run
+   reckons for a world of one at the real ``k_loc`` must equal what phase
+   9b's world of one holds (its tables, state and generator);
+   ``[analysis]`` sums the seconds of the analysis lines.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -1421,6 +1448,14 @@ def sharded_phase(c, args, card: str, dev, rtf_fused: float,
     build_s = time.perf_counter() - t0
     line, runs["sharded_one"] = sharded_run("sharded_one", sim, args.t_sim)
     out["one_ms_per_step"] = line["ms_per_step"]
+    st1 = sim.state
+    out["one_layout"] = {
+        "n": N, "d": D, "k_loc": sim.backend.meta["k_loc"],
+        "bytes": sum(x.numel() * x.element_size() for x in (
+            *sim.backend.net.tables,
+            *(v for v in st1 if isinstance(v, torch.Tensor))))
+        + st1.generator.get_state().numel()}
+    del st1
     fused = Simulator(cfg, connectome=c, device=dev, kernels="split",
                       probes=("pop_counts", "spikes"))
     held = hold_sharded("sharded_one", sim, fused, n_hold * 0.1)
@@ -2370,6 +2405,250 @@ def serve_phase(args, card: str, dev) -> dict:
     return runs
 
 
+# ---------------------------------------------------------------------------
+# [analysis]: the hot-path guards and the launch tooling on the card
+# ---------------------------------------------------------------------------
+
+#: ``[graph_contract]``'s warm run (check_graphed's longer one): three body
+#: graphs long, so that its body graph is told apart by its replay count
+CONTRACT_STEPS = 300
+
+
+def body_graph(sim, n_steps: int):
+    """``(entry, graph)``: the graph cache's entry of a warm run of
+    ``n_steps`` with the session's probes, and its body graph (the one
+    replayed most)."""
+    backend = sim.backend
+    entry = backend.graphs.peek(backend._key(n_steps, tuple(sim.probes)))
+    return entry, max(entry.graphs, key=lambda gt: gt[1])[0]
+
+
+def replay_body(entry, graph) -> None:
+    """One replay of a body graph (``graph_steps`` steps), its probes'
+    rows written from row 0."""
+    entry.row.zero_()
+    graph.replay(1)
+
+
+def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
+    """``[graph_contract]``: GC001-GC004 on the warm graphed session
+    ``sim`` (``graph_contract.check_graphed``: two warm runs under the sync
+    debug mode "error", their replays and eager work, the census of an
+    eager step), the step's kernels launched per step over a warm run of
+    ``CONTRACT_STEPS``, the device-to-host copies and float64 kernels in
+    one replayed body (the profiler's census, 0 each).  Returns the body's
+    kernel census and its replay's ms a step."""
+    import torch
+    from repro_torch.analysis import graph_contract as GC
+    from repro_torch.kernels import _build
+    from repro_torch.perf.step_analysis import kernel_census
+    t0 = time.perf_counter()
+    out = GC.check_graphed(sim, symbol=label)
+    if out["findings"]:
+        fail(f"graph_contract {label}: "
+             + "; ".join(f.format() for f in out["findings"]))
+    probes = tuple(sim.probes)
+    _build.reset_launches()
+    sim.backend.run(sim.state, CONTRACT_STEPS, probes)
+    torch.cuda.synchronize()
+    per_step = {k: _build.launches[k] / CONTRACT_STEPS for k in kernels}
+    if any(v != 1.0 for v in per_step.values()):
+        fail(f"graph_contract {label}: kernels a step {per_step}, not 1")
+    entry, body = body_graph(sim, CONTRACT_STEPS)
+    census = kernel_census(lambda: replay_body(entry, body),
+                           sim.backend.graph_steps)
+    d2h = sum(v["launches_per_step"] for k, v in census["kernels"].items()
+              if "DtoH" in k or "Device -> Host" in k)
+    f64 = [k for k in census["kernels"] if "double" in k or "float64" in k]
+    if d2h or f64 or out["census"]["f64_tensors"]:
+        fail(f"graph_contract {label}: {d2h} device-to-host copies a step "
+             f"in a replayed body, float64 kernels {f64}")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    replay_body(entry, body)
+    start.record()
+    for _ in range(10):
+        replay_body(entry, body)
+    stop.record()
+    stop.synchronize()
+    body_ms = start.elapsed_time(stop) / (10 * sim.backend.graph_steps)
+    c = out["census"]
+    say("graph_contract", path=label, rules="GC001-GC004", findings=0,
+        warm_runs=json.dumps(out["runs"]),
+        kernels_per_step=json.dumps(per_step), casts_per_step=c["casts"],
+        cast_kinds=json.dumps(c["cast_kinds"]),
+        eager_ops_per_step=c["ops_per_step"][0],
+        host_syncs_per_step=c["host_syncs"],
+        d2h_copies_in_replay=d2h, float64_kernels=len(f64),
+        float64_tensors=c["f64_tensors"], seconds=time.perf_counter() - t0,
+        card=json.dumps(card))
+    return {"census": census, "body_ms_per_step": body_ms,
+            "eager_ops": c["ops"]}
+
+
+def step_census_line(label: str, contract: dict, ms_step: float,
+                     card: str) -> None:
+    """``[step_census]``: the profiler's table of one replayed body (each
+    kernel's launches and device µs a step), its sum against the body
+    replay's event time a step and the run's graphed ms a step."""
+    census = contract["census"]
+    say("step_census", path=label, kernels=json.dumps({
+        k: {"launches_per_step": round(v["launches_per_step"], 3),
+            "us_per_step": round(v["us_per_step"], 3)}
+        for k, v in census["kernels"].items()}),
+        device_us_per_step=census["us_per_step"],
+        launches_per_step=census["launches_per_step"],
+        body_replay_ms_per_step=contract["body_ms_per_step"],
+        graphed_run_ms_per_step=ms_step,
+        busy_share_of_body=census["us_per_step"] / 1e3
+        / contract["body_ms_per_step"],
+        eager_aten_ops_per_step=json.dumps(contract["eager_ops"]),
+        card=json.dumps(card))
+
+
+#: the step of the next run into whose ring slot ``[sanitize]`` puts a NaN
+NAN_STEP = 37
+
+
+def sanitize_line(sim, card: str) -> None:
+    """``[sanitize]``: a warm 100-step run of ``sim`` under ``sanitize()``
+    raises nothing; the same run with a NaN arrival in the ring slot that
+    step ``NAN_STEP`` reads raises there, naming ``I_ex``.  Leaves ``sim``'s
+    state with the NaN (the caller drops it)."""
+    from repro_torch.analysis.sanitize import sanitize
+    sim.warmup(10.0, include_presim=False)
+    t0 = time.perf_counter()
+    with sanitize():
+        res = sim.run(10.0)
+    clean_s = time.perf_counter() - t0
+    st = sim.state
+    t = int(st.t)
+    st.ring[(t + NAN_STEP) % st.ring.shape[0], 0,
+            st.ring.shape[2] // 3] = float("nan")
+    t0 = time.perf_counter()
+    try:
+        with sanitize():
+            sim.run(10.0)
+    except FloatingPointError as e:
+        said = str(e)
+    else:
+        fail("sanitize: a NaN in the ring raised nothing")
+    want = f"step {NAN_STEP} of this run (step counter t = {t + NAN_STEP})"
+    if want not in said or "I_ex" not in said:
+        fail(f"sanitize: raised {said!r}, not at {want} in I_ex")
+    say("sanitize", clean_steps=res.n_steps, clean_rtf=res.rtf,
+        clean_s=clean_s, nan_step=NAN_STEP, raised=json.dumps(said),
+        locate_s=time.perf_counter() - t0, card=json.dumps(card))
+
+
+#: [dense_sharded]'s steps (each run K5 once a step)
+DENSE_SHARDED_STEPS = 300
+
+
+def dense_sharded_line(W, c_d, args, card: str, dev) -> dict:
+    """``[dense_sharded]``: ``distributed.make_dense_step`` as a world of
+    one over an NCCL group of one (``launch.mesh.make_host_mesh``), on the
+    dense path's bin-major table ``W`` (its connectome ``c_d``) with the
+    8 Hz background: K5 launched exactly once a step; the same steps from
+    the same state and generator state with K5's plain version, every
+    tensor and count bitwise; ms a step.  Returns the K5 run's launches."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import distributed as DD
+    from repro_torch.core.neuron import Propagators
+    from repro_torch.core.params import NeuronParams
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import spike_deliver as K5
+    from repro_torch.launch import mesh as M
+    n, d = c_d.n_total, c_d.d_max_bins
+    prop = Propagators.make(NeuronParams(), 0.1)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    V0 = torch.as_tensor(c_d.v0_mean, device=dev) + torch.as_tensor(
+        c_d.v0_sd, device=dev) * torch.randn(n, generator=gen, device=dev)
+    aux = {"k_ext": torch.as_tensor(c_d.k_ext, device=dev),
+           "i_dc": torch.as_tensor(c_d.i_dc, device=dev)}
+    gen0 = gen.get_state()
+    M.init_single_process_group("nccl")
+    try:
+        world = M.world2d(M.make_host_mesh())
+        runs = {}
+        for name, matvec in (("kernel", None),
+                             ("plain", K5.gated_spike_matvec_plain)):
+            gen.set_state(gen0)
+            sim = DD.make_dense_step(
+                world, prop, n=n, n_exc=c_d.n_exc, w_ext=c_d.w_ext,
+                bg_rate=8.0, dt=0.1, n_steps=DENSE_SHARDED_STEPS,
+                matvec=matvec)
+            st = DD.dense_state(V0, d, gen)
+            sim.step(st, W, aux)             # NCCL's communicator, built
+            st = DD.dense_state(V0, d, gen)
+            gen.set_state(gen0)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            st, counts = sim(st, W, aux)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[name] = (st, counts, dict(_build.launches), wall)
+        collective = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    (sk, ck, lk, wk), (sp, cp, lp, wp) = runs["kernel"], runs["plain"]
+    want = {"gated_spike_matvec": DENSE_SHARDED_STEPS}
+    if any(lk[k] != v for k, v in want.items()) \
+            or any(v for k, v in lk.items() if k not in want) \
+            or any(lp.values()):
+        fail(f"dense_sharded: K5 launched {lk} (and the plain run {lp}) "
+             f"for {DENSE_SHARDED_STEPS} steps")
+    same = {name: bitwise(getattr(sk, name), getattr(sp, name))
+            for name in ("V", "I_ex", "I_in", "refrac", "ring", "t")}
+    same["counts"] = bitwise(ck, cp)
+    if not all(same.values()):
+        fail(f"dense_sharded: K5's run departs from the plain version's "
+             f"{same}")
+    if int(ck.sum()) == 0:
+        fail("dense_sharded: no spike in the run")
+    say("dense_sharded", world="1x1", collective=collective, n=n, d_bins=d,
+        table=json.dumps([list(W.shape), str(W.dtype)]),
+        steps=DENSE_SHARDED_STEPS, spikes=int(ck.sum()),
+        launches=json.dumps(lk), bitwise_to_plain=json.dumps(same),
+        ms_per_step=wk / DENSE_SHARDED_STEPS * 1e3,
+        plain_ms_per_step=wp / DENSE_SHARDED_STEPS * 1e3,
+        card=json.dumps(card))
+    return lk
+
+
+def dryrun_line(one: dict, card: str) -> None:
+    """``[dryrun]``: ``launch.dryrun``'s four cells (event and dense on
+    pod1 and pod2; meta tensors, nothing allocated), and the reckoned
+    argument bytes of a world of one at the real ``k_loc`` against the
+    bytes phase 9b's world of one holds (``one``), which must be equal."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    for shape in dryrun.STRATEGIES:
+        for mesh_name in ("pod1", "pod2"):
+            r = dryrun.run_cell("microcircuit", shape, mesh_name, force=True)
+            say("dryrun", cell=f"{shape}__{mesh_name}",
+                n_devices=r["n_devices"],
+                argument_bytes=r["memory"]["argument_bytes"],
+                temp_bytes_upper_bound=r["memory"]["temp_bytes_upper_bound"],
+                fits=r["memory"]["fits"],
+                flops_per_device=r["flops_per_device"],
+                bytes_accessed_per_device=r["bytes_accessed_per_device"],
+                collective_wire_bytes_per_device=r[
+                    "collective_wire_bytes_per_device"],
+                collectives=json.dumps(r["collectives"]),
+                k_loc=r.get("k_loc"), w_block=json.dumps(r.get("w_block")))
+    reckoned = dryrun.rank_argument_bytes(one["n"], 1, one["k_loc"],
+                                          one["d"])
+    if reckoned != one["bytes"]:
+        fail(f"dryrun: a world of one reckons {reckoned} argument bytes, "
+             f"its tables and state hold {one['bytes']}")
+    say("dryrun_world_of_one", k_loc=one["k_loc"], reckoned_bytes=reckoned,
+        real_bytes=one["bytes"], equal=True,
+        seconds=time.perf_counter() - t0, card=json.dumps(card))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scale", type=float, default=1.0)
@@ -2824,7 +3103,14 @@ def main() -> None:
         pop_counts_equal=True, elements_with_other_bits=json.dumps(bits))
     del start, one, one_state, chunked
 
-    del sim
+    # [analysis] on the main path's session: the graph contracts, the
+    # replayed body's kernels, sanitize() (which leaves a NaN in the state)
+    t0 = time.perf_counter()
+    contract = graph_contract_line("static", sim, card, ("lif_deliver",))
+    step_census_line("static", contract, ms_step, card)
+    sanitize_line(sim, card)
+    analysis_s = {"static": time.perf_counter() - t0}
+    del sim, contract
     torch.cuda.empty_cache()
 
     # -- 6. the split path ----------------------------------------------------
@@ -2934,6 +3220,10 @@ def main() -> None:
         card=json.dumps(card))
     del eager, eager_res
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    graph_contract_line("plastic", sim, card,
+                        ("lif_deliver_plastic", "stdp_update"))
+    analysis_s["plastic"] = time.perf_counter() - t0
     spikes_pl = max(1, round(float(res_pl["pop_counts"].sum())
                              / res_pl.n_steps))
     tables = sim.backend.net.tables
@@ -3295,7 +3585,13 @@ def main() -> None:
     say("timing_dense", spikes=spikes_d, K5=json.dumps(k5d),
         K5_plain=json.dumps(k5d_plain),
         library_batched_matmul_tf32_off=json.dumps(k5d_lib))
-    del W, ring, spks_d, s_lib
+    del ring, spks_d, s_lib
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dense_sharded_launches = dense_sharded_line(W, c_d, args, card, dev)
+    analysis_s["dense_sharded"] = time.perf_counter() - t0
+    del W
 
     # (e) the graphed dense loop against the eager one, from one state.
     # Two 43.8 GB tables do not fit the card at once, so the graphed
@@ -3351,6 +3647,13 @@ def main() -> None:
     # -- 12. the session server -----------------------------------------------
     serve_runs = serve_phase(args, card, dev)
 
+    # -- 13. [analysis]: the dry run; the phase's other lines ran above ------
+    t0 = time.perf_counter()
+    dryrun_line(sharded["one_layout"], card)
+    analysis_s["dryrun"] = time.perf_counter() - t0
+    say("analysis", seconds=sum(analysis_s.values()),
+        by_part=json.dumps(analysis_s), card=json.dumps(card))
+
     k2l = sharded["k2_local"]
 
     def row(name, source, replaces, t, plain, n_bytes, n_ops, lib, err,
@@ -3360,6 +3663,7 @@ def main() -> None:
                    "split": split_launches[name],
                    "plastic": plastic_launches[name],
                    "dense": dense_launches[name],
+                   "dense_sharded": dense_sharded_launches[name],
                    "attention": att["launches"][name],
                    "serve": sum(counts[name]
                                 for counts in serve_runs.values()),

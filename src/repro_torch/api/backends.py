@@ -94,6 +94,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import time
 import weakref
@@ -103,7 +104,7 @@ import numpy as np
 import torch
 
 from repro_torch import convert
-from repro_torch.analysis.sanitize import RecompileGuard
+from repro_torch.analysis.sanitize import RecompileGuard, checked_run
 from repro_torch.api.graph_cache import GraphCache
 from repro_torch.api.probes import ProbeContext, StreamProbe, split_probes
 from repro_torch.core import delivery as dlv
@@ -178,6 +179,15 @@ def _clone_generator(gen: Optional[torch.Generator]):
     twin = torch.Generator(device=gen.device)
     twin.set_state(gen.get_state())
     return twin
+
+
+def _sanitized(run):
+    """A backend's ``run`` under the checks of an open
+    ``repro_torch.analysis.sanitize()`` (just the run when none is)."""
+    @functools.wraps(run)
+    def checked(self, state, n_steps, probes, stream=None):
+        return checked_run(self, run, state, n_steps, probes, stream)
+    return checked
 
 
 class Backend:
@@ -608,6 +618,7 @@ class FusedBackend(_LoopBackend):
                 self._key(n_steps, probes),
                 lambda: self._capture(state, n_steps, probes))
 
+    @_sanitized
     def run(self, state, n_steps: int, probes: Sequence,
             stream: Optional[Dict[str, Any]] = None):
         probes = tuple(probes)
@@ -773,6 +784,7 @@ class InstrumentedBackend(_LoopBackend):
             mark[0] = now
         return tick
 
+    @_sanitized
     def run(self, state, n_steps: int, probes: Sequence,
             stream: Optional[Dict[str, Any]] = None):
         step_probes, stream_probes = split_probes(tuple(probes))

@@ -32,21 +32,42 @@ shard layout at full width alone).  The population counts come from the
 gathered registry, reduced over ``pop_of`` padded with a sentinel
 population (:func:`padded_pop_of`), so they are the same on every rank.
 
-Not here: the reference's dense sharded step and its abstract stand-ins
-for the dry run (``:101-137, 311-397``), which only ``launch/dryrun``
-reaches.
+The rest of the reference's module (``:101-137, 311-397``) is here too:
+
+* the abstract layouts of the dry run (``launch/dryrun``):
+  :func:`abstract_sharded_tables`, :func:`abstract_state` and
+  :func:`abstract_dense` are tensors on ``meta`` (shapes and dtypes, no
+  storage) with the reference's shapes and dtypes; where the reference
+  holds PRNG keys (``[n_dev, 2]`` / ``[2]`` uint32), the layouts hold the
+  generators' states (``[n_dev, 16]`` / ``[16]`` uint8, a CUDA
+  generator's), as the sharded checkpoint does;
+* the dense strategy sharded 2-D: :func:`dense_shardings` places
+  ``W[D, N, N]`` (dim 1, the sources, over every mesh dim but ``model``;
+  dim 2, the targets, over ``model``) and replicates the ``[N]`` state;
+  :func:`make_dense_step` is the step each rank runs over its
+  ``W[:, pre_block, post_block]``, whose local product is K5
+  (``kernels.spike_deliver.gated_spike_matvec``), the partial sums
+  all-reduced over the ``data`` group and all-gathered over ``model``
+  (``launch.mesh.World2d``).
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from repro_torch.core import kernel_policy as kpol
 from repro_torch.core.engine import Network, SimState, update_phase
-from repro_torch.core.neuron import NeuronState
+from repro_torch.core.neuron import NeuronState, Propagators
 from repro_torch.kernels.ell_deliver import ell_deliver, ell_deliver_plain
+from repro_torch.kernels.lif_deliver import slot_index
+from repro_torch.kernels.spike_deliver import gated_spike_matvec, rolled
+
+#: bytes of a CUDA generator's state (``torch.Generator.get_state()``): the
+#: abstract layouts' stand-in for the reference's PRNG key
+GENERATOR_STATE_BYTES = 16
 
 
 class ShardedTables(NamedTuple):
@@ -268,3 +289,193 @@ def rank_seed(seed: int, rank: int) -> int:
     word = np.random.SeedSequence([int(seed), int(rank)]).generate_state(
         1, np.uint64)[0]
     return int(word) & ((1 << 63) - 1)
+
+
+# ---------------------------------------------------------------------------
+# Abstract layouts (the dry run): meta tensors, nothing allocated
+# ---------------------------------------------------------------------------
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def abstract_sharded_tables(c_meta: dict, n_dev: int, k_loc: int,
+                            n_pad: int) -> ShardedTables:
+    """The world's localised tables as ``meta`` tensors (the reference's
+    ``abstract_sharded_tables``, ``:101-112``)."""
+    cols = n_dev * k_loc
+    return ShardedTables(
+        targets=_meta((n_pad + 1, cols), torch.int32),
+        weights=_meta((n_pad + 1, cols), torch.float32),
+        dbins=_meta((n_pad + 1, cols), torch.int32),
+        k_ext=_meta((n_pad,), torch.float32),
+        i_dc=_meta((n_pad,), torch.float32))
+
+
+def abstract_state(n_pad: int, n_dev: int, d_ring: int) -> ShardedSimState:
+    """The world's global sharded state as ``meta`` tensors (the
+    reference's ``abstract_state``, ``:127-137``; ``generator`` holds each
+    rank's generator state where the reference holds its key)."""
+    return ShardedSimState(
+        V=_meta((n_pad,), torch.float32),
+        I_ex=_meta((n_pad,), torch.float32),
+        I_in=_meta((n_pad,), torch.float32),
+        refrac=_meta((n_pad,), torch.int32),
+        ring=_meta((d_ring, 2, n_pad + n_dev), torch.float32),
+        t=_meta((), torch.int32),
+        generator=_meta((n_dev, GENERATOR_STATE_BYTES), torch.uint8),
+        overflow=_meta((n_dev,), torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The dense strategy, sharded 2-D (the reference's :311-397)
+# ---------------------------------------------------------------------------
+
+class DenseSimState(NamedTuple):
+    """The dense sharded step's state, replicated on every rank.  The
+    reference keeps a PRNG key (``key``); a rank here draws from its
+    ``generator`` (None when the step draws nothing)."""
+    V: torch.Tensor         # [N]
+    I_ex: torch.Tensor
+    I_in: torch.Tensor
+    refrac: torch.Tensor    # int32
+    ring: torch.Tensor      # [D_ring, 2, N], updated in place
+    t: torch.Tensor         # 0-d int32
+    generator: Any          # torch.Generator | None (meta: its state)
+    overflow: torch.Tensor  # 0-d int32
+
+
+def dense_state(V: torch.Tensor, d_ring: int,
+                generator: Optional[torch.Generator] = None
+                ) -> DenseSimState:
+    """A fresh dense state from ``V`` [N]: currents, refractory counters,
+    ring and counters 0."""
+    n, dev = V.shape[0], V.device
+    z = lambda dtype: torch.zeros(n, dtype=dtype, device=dev)
+    return DenseSimState(
+        V=V.clone(), I_ex=z(torch.float32), I_in=z(torch.float32),
+        refrac=z(torch.int32),
+        ring=torch.zeros((d_ring, 2, n), dtype=torch.float32, device=dev),
+        t=torch.zeros((), dtype=torch.int32, device=dev),
+        generator=generator,
+        overflow=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def abstract_dense(n: int, d_ring: int, dtype=torch.bfloat16):
+    """``(state, W, aux)`` of the dense step as ``meta`` tensors (the
+    reference's ``abstract_dense``, ``:326-335``)."""
+    state = DenseSimState(
+        V=_meta((n,), torch.float32), I_ex=_meta((n,), torch.float32),
+        I_in=_meta((n,), torch.float32), refrac=_meta((n,), torch.int32),
+        ring=_meta((d_ring, 2, n), torch.float32),
+        t=_meta((), torch.int32),
+        generator=_meta((GENERATOR_STATE_BYTES,), torch.uint8),
+        overflow=_meta((), torch.int32))
+    W = _meta((d_ring, n, n), dtype)
+    aux = {"k_ext": _meta((n,), torch.float32),
+           "i_dc": _meta((n,), torch.float32)}
+    return state, W, aux
+
+
+def dense_shardings(mesh, state: DenseSimState, W, aux):
+    """Placements (one per mesh dim) of ``(state, W, aux)``: ``W``'s dim 1
+    (the sources) over every mesh dim but ``model``, its dim 2 (the
+    targets) over ``model``; the ``[N]`` state and ``aux`` replicated (300
+    KB at full scale).  The reference's ``P(None, pre, "model")``."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.sharding.rules import mesh_axes
+    names = mesh_axes(mesh)[0]
+    rep = tuple(Replicate() for _ in names)
+    w_sh = tuple(Shard(2) if a == "model" else Shard(1) for a in names)
+    st = DenseSimState(*(rep for _ in state))
+    ax = {k: rep for k in aux}
+    return st, w_sh, ax
+
+
+def dense_block(W: torch.Tensor, world) -> torch.Tensor:
+    """Rank ``world.coord``'s block ``W[:, pre_block, post_block]`` of the
+    world's ``W[D, N, N]`` (a contiguous copy, but for a world of one)."""
+    n_pre, n_model = world.shape
+    if (n_pre, n_model) == (1, 1):
+        return W
+    p, q = W.shape[1] // n_pre, W.shape[2] // n_model
+    i, j = world.coord
+    return W[:, i * p:(i + 1) * p, j * q:(j + 1) * q].contiguous()
+
+
+def make_dense_step(world2d, prop: Propagators, *, n: int, n_exc: int,
+                    w_ext: float, bg_rate: float, dt: float, n_steps: int,
+                    matvec: Optional[Callable] = None):
+    """``sim_chunk(state, W_block, aux) -> (state, counts [n_steps])``: the
+    reference's ``make_dense_step`` (``:347-397``) on one rank of
+    ``world2d`` (``launch.mesh.World2d``; ``World2d()`` is a world of one).
+
+    The state is replicated (every rank steps the same ``[N]`` state, and
+    draws the same Poisson stream from its own generator when ``bg_rate``
+    is positive); ``W_block`` is the rank's ``W[:, pre_block, post_block]``
+    (:func:`dense_block`), float32 or bfloat16, and ``aux`` holds ``k_ext``
+    and ``i_dc`` ``[N]``.  A step reads and consumes the ring's slot, adds
+    the drive, integrates as the reference does, then delivers on one
+    signed channel (the model's equal synaptic time constants): the local
+    product ``matvec(spiked[pre_block], W_block)`` (K5's wrapper unless
+    given: the kernel on the card, its plain version on the CPU; a bf16
+    block is widened as it is read), all-reduced over the ``data`` group,
+    all-gathered over ``model``, rolled by ``t`` and added into channel 0
+    of the ring, in place.  ``n_exc`` is unused (one signed channel), as in
+    the reference.
+    """
+    if not (prop.P11_ex == prop.P11_in and prop.P21_ex == prop.P21_in):
+        raise ValueError("the dense sharded step delivers on one signed "
+                         "channel: it needs equal synaptic time constants")
+    n_pre, n_model = world2d.shape
+    if n % n_pre or n % n_model:
+        raise ValueError(f"N={n} does not split over a {n_pre} x {n_model} "
+                         f"world")
+    matvec = matvec or gated_spike_matvec
+    lam_scale = bg_rate * dt * 1e-3
+    p_blk = n // n_pre
+    lo = world2d.coord[0] * p_blk
+
+    def step(st: DenseSimState, W_blk: torch.Tensor,
+             aux: Dict[str, torch.Tensor]):
+        slot = slot_index(st.t, st.ring.shape[0])
+        arrivals = st.ring.index_select(0, slot)[0]            # [2, N]
+        in_ex, in_in = arrivals[0], arrivals[1]
+        if lam_scale > 0:
+            gen = st.generator if isinstance(st.generator,
+                                             torch.Generator) else None
+            ext = torch.poisson(aux["k_ext"] * lam_scale,
+                                generator=gen).to(torch.int32)
+            in_ex = in_ex + w_ext * ext.to(in_ex.dtype)
+        V = (prop.E_L + (st.V - prop.E_L) * prop.P22
+             + st.I_ex * prop.P21_ex + st.I_in * prop.P21_in
+             + aux["i_dc"] * prop.P20)
+        I_ex = st.I_ex * prop.P11_ex + in_ex
+        I_in = st.I_in * prop.P11_in + in_in
+        refr = st.refrac > 0
+        V = torch.where(refr, prop.V_reset, V)
+        spiked = (V >= prop.V_th) & ~refr
+        V = torch.where(spiked, prop.V_reset, V)
+        refrac = torch.where(spiked, prop.ref_steps,
+                             torch.clamp(st.refrac - 1, min=0)
+                             ).to(torch.int32)
+        st.ring.index_fill_(0, slot, 0.0)
+        part = matvec(spiked[lo:lo + p_blk], W_blk)            # [D, n/model]
+        upd = world2d.all_gather_model(world2d.all_reduce_data(part))
+        st.ring[:, 0, :] += rolled(upd, st.t)
+        new = DenseSimState(V, I_ex, I_in, refrac, st.ring, st.t + 1,
+                            st.generator, st.overflow)
+        return new, spiked.sum(dtype=torch.int32)
+
+    def sim_chunk(state: DenseSimState, W_blk: torch.Tensor,
+                  aux: Dict[str, torch.Tensor]):
+        counts = []
+        for _ in range(n_steps):
+            state, c = step(state, W_blk, aux)
+            counts.append(c)
+        return state, torch.stack(counts) if counts else torch.zeros(
+            0, dtype=torch.int32, device=state.V.device)
+
+    sim_chunk.step = step
+    return sim_chunk

@@ -23,15 +23,22 @@ in no fixed order, so on the card the ring agrees with the plain version
 to a tolerance, while ids and overflow are exact.  Neither reads
 anything back to the host.
 
+On ``meta`` tensors (``launch.dryrun``) a call gives its outputs' shapes
+and reports to ``perf.step_analysis`` what a launch delivering the
+budget's rows would move (a meta tensor holds no spikes); nothing runs.
+
 On the card a call is one cooperative launch (``lif_deliver.deliver``):
 the ordered compaction by decoupled look-back over the workspace that K3
 and K4 use, a grid sync, then the scatter split evenly by entries.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels import lif_deliver as K3
 from repro_torch.kernels.lif_deliver import (  # noqa: F401 (K2's names)
     compact_ids_plain, ell_deliver_plain, scatter_rows_plain)
+from repro_torch.perf.step_analysis import note_kernel
 
 #: what lies between a block's consecutive stamps of K2's stamped launch
 #: (``lif_deliver.stamps_buffer``): the fused step's first five phases
@@ -54,5 +61,13 @@ def ell_deliver(ring, targets, weights, dbins, spiked, t, n_exc: int,
         K3.check_ring("ell_deliver", ring, n, n if n_tgt is None else n_tgt)
         return ell_deliver_plain(ring, targets, weights, dbins, spiked, t,
                                  n_exc, budget)
+    if ring.device.type == "meta":
+        n_rows = min(budget, spiked.shape[0])
+        entries = n_rows * targets.shape[1]
+        note_kernel("ell_deliver" if n_tgt is None else "ell_deliver_local",
+                    nbytes=spiked.shape[0] + 4 * budget + 4
+                    + entries * (12 + 8), flops=3 * entries)
+        return (ring, torch.empty(budget, dtype=torch.int32, device="meta"),
+                torch.empty((), dtype=torch.int32, device="meta"))
     return K3.deliver(ring, targets, weights, dbins, spiked, t, n_exc=n_exc,
                       budget=budget, n_tgt=n_tgt, stamps=stamps)

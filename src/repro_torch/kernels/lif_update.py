@@ -2,7 +2,10 @@
 
 Replaces ``repro/kernels/lif_update.py:lif_update_pallas``.  The wrapper
 runs the plain PyTorch version for CPU tensors (the tests) and launches the
-CUDA kernel for CUDA tensors, or raises; it never falls back.  With
+CUDA kernel for CUDA tensors, or raises; it never falls back.  On ``meta``
+tensors (a step laid out by ``launch.dryrun``) it gives its outputs'
+shapes and reports the bytes and operations a launch would take to
+``perf.step_analysis``; nothing runs.  With
 rounding pinned on both sides (no FMA contraction) the kernel equals the
 plain version bit for bit.
 """
@@ -14,8 +17,12 @@ import torch
 
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
 from repro_torch.kernels import _build
+from repro_torch.perf.step_analysis import note_kernel
 
 _F, _I, _P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+
+#: float operations of one neuron's update (its bound's count)
+LIF_OPS = 13
 
 
 def lif_update_plain(V, I_ex, I_in, refrac, in_ex, in_in, i_dc, *,
@@ -49,6 +56,12 @@ def lif_update(V, I_ex, I_in, refrac, in_ex, in_in, i_dc, *,
     args = (V, I_ex, I_in, refrac, in_ex, in_in, i_dc)
     if V.device.type == "cpu":
         return lif_update_plain(*args, prop=prop)
+    if V.device.type == "meta":
+        n = V.shape[0]
+        note_kernel("lif_update", nbytes=(7 * 4 + 4 * 4 + 1) * n,
+                    flops=LIF_OPS * n)
+        return (*(torch.empty_like(t) for t in (V, I_ex, I_in, refrac)),
+                torch.empty(n, dtype=torch.bool, device="meta"))
     _build.require_cuda("lif_update", *args)
     for t in (V, I_ex, I_in, in_ex, in_in, i_dc):
         if t.dtype != torch.float32:

@@ -19,7 +19,12 @@ the order of the sum.
 
 ``gated_spike_matvec(s, W) -> [D, N]`` is the kernel with the reference
 kernel's own signature (``repro/kernels/ops.py:37``): the one sum
-``Σ_p s[p]·W[d, p, n]`` over the ``p`` with ``s[p] != 0``.
+``Σ_p s[p]·W[d, p, n]`` over the ``p`` with ``s[p] != 0``.  It is the
+local product of the dense sharded step (``core/distributed``).  On
+``meta`` tensors (``launch.dryrun``) it gives the result's shape and
+reports to ``perf.step_analysis`` the dense product it stands for (every
+row: a meta tensor holds no spikes), as the reference's dry run counts its
+einsum; nothing runs.
 """
 from __future__ import annotations
 
@@ -29,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.perf.step_analysis import note_kernel
 
 _I, _P = ctypes.c_int, ctypes.c_void_p
 
@@ -148,6 +154,12 @@ def gated_spike_matvec(s: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
     if W.device.type == "cpu":
         return gated_spike_matvec_plain(s, W)
     _check_table("gated_spike_matvec", W)
+    if W.device.type == "meta":
+        d, p, n = W.shape
+        note_kernel("gated_spike_matvec",
+                    nbytes=W.numel() * W.element_size() + 4 * p + 4 * d * n,
+                    flops=2 * d * p * n)
+        return torch.empty((d, n), dtype=torch.float32, device="meta")
     if s.shape != (W.shape[1],):
         raise ValueError(f"gated_spike_matvec: s {tuple(s.shape)} does not "
                          f"fit W {tuple(W.shape)}")

@@ -10,9 +10,10 @@ axes beside the value, which ``split_tree`` separates.  Under
 ``abstract_params`` the values are tensors on the ``meta`` device: shapes
 and dtypes, no storage.
 
-The port runs on one card, so ``gathered`` is a cast and ``constrain``
-the identity (the reference's are too without a mesh,
-``repro/sharding/ctx.py:39-45``).
+``gathered`` is a cast on one card.  ``constrain`` is the ambient mesh's
+(``repro_torch.sharding.ctx``): the identity outside a mesh, as the
+reference's is (``repro/sharding/ctx.py:39-45``), and a redistribution of
+a ``DTensor`` under one.
 
 Attention routes by case (``mha``):
 
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
+from repro_torch.sharding.ctx import constrain
 
 
 class ParamSpec(NamedTuple):
@@ -99,11 +101,6 @@ def split_tree(tree):
 def gathered(w: torch.Tensor, axes, dt: torch.dtype) -> torch.Tensor:
     """The reference's ZeRO-3 gather on one card: a cast."""
     return w.to(dt)
-
-
-def constrain(x: torch.Tensor, axes) -> torch.Tensor:
-    """The reference's sharding constraint on one card: the identity."""
-    return x
 
 
 # ---------------------------------------------------------------------------

@@ -36,7 +36,9 @@ def test_port_files_found():
             "experiment.py", "checkpointer.py", "reference.py",
             "report.py", "stats.py", "compile_cache.py", "session.py",
             "batching.py", "http.py", "sanitize.py", "__main__.py",
-            "graph_cache.py", "distributed.py", "mesh.py"} <= names
+            "graph_cache.py", "distributed.py", "mesh.py", "lint.py",
+            "graph_contract.py", "step_analysis.py", "dryrun.py",
+            "rules.py", "ctx.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
