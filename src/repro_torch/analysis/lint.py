@@ -54,7 +54,8 @@ from repro_torch.analysis.report import Finding
 #: steps it reaches through ``self._step``), and the per-step entry points of
 #: every registry: delivery ``deliver``, stimulus ``compile`` (its nested
 #: gates run each step) and ``Drive``'s per-step draw, plasticity ``step``,
-#: the probes' reducers, and every kernel wrapper.
+#: the probes' reducers, every kernel wrapper, and the spans and counters
+#: (``perf/trace.py``) the step and the loop open.
 DEFAULT_ROOTS: Tuple[str, ...] = (
     "repro_torch.core.engine.update_phase",
     "repro_torch.core.engine.fused_update_phase",
@@ -78,6 +79,7 @@ DEFAULT_ROOTS: Tuple[str, ...] = (
     "repro_torch.api.probes.*.update",
     "repro_torch.api.probes.*.init",
     "repro_torch.kernels.*",
+    "repro_torch.perf.trace.*",
 )
 
 #: parameter names treated as tensors for RL001 / RL002 (the step state and
@@ -101,9 +103,11 @@ DEFAULT_DTYPE_SCOPES: Tuple[str, ...] = (
 
 #: path substrings scanned by RL005 (module-level shared mutable state).
 #: ``api/probes.py`` rides along: its interning tables are process-wide
-#: and reached from the server's threads.
+#: and reached from the server's threads; so does ``perf/trace.py``, whose
+#: span buffer and counters every thread writes.
 DEFAULT_SHARED_STATE_SCOPES: Tuple[str, ...] = (
     "repro_torch/serve/", "repro_torch/api/probes.py",
+    "repro_torch/perf/trace.py",
 )
 
 #: protocol base classes checked by RL003 (resolved by simple name in the

@@ -122,10 +122,22 @@ from repro_torch.core.neuron import Propagators
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels import _build
 from repro_torch.launch import mesh
+from repro_torch.perf import trace
 
 #: steps in a body graph: replays of fewer steps pay more launches, longer
 #: bodies more capture time and memory, for nothing (PERF.md §6)
 GRAPH_STEPS = 100
+
+#: the split loop's phases (the instrumented loop's timer keys) and the
+#: step spans they open (``repro_torch.perf.trace``)
+PHASE_SPANS = {"update": "step.update", "deliver": "step.deliver",
+               "plasticity": "step.stdp", "record": "step.probe"}
+
+
+def _phase_span(phase: str):
+    """``phase``'s step span: the loops' ``phase`` unless the instrumented
+    loop times its phases."""
+    return trace.span(PHASE_SPANS[phase])
 
 
 class Carry(NamedTuple):
@@ -285,9 +297,11 @@ class Backend:
                      if isinstance(v, GraphCache))
 
     def overflow(self, state: Any) -> int:
-        """Cumulative spike-budget overflow of ``state`` (one host read); a
-        plastic session's pair holds it in its ``SimState``."""
+        """Cumulative spike-budget overflow of ``state`` (one host read,
+        counted as ``session.syncs``); a plastic session's pair holds it in
+        its ``SimState``."""
         sim = state if hasattr(state, "overflow") else state[0]
+        trace.count("session.syncs")
         return int(sim.overflow.item())
 
     # -- checkpoints (``Simulator.save`` / ``restore``) ---------------------
@@ -342,14 +356,16 @@ class _LoopBackend(Backend):
         self.c, self.cfg = c, cfg
         neuron = neuron or NeuronParams()
         self.prop = Propagators.make(neuron, cfg.dt)
-        self.net = prepare_network(c, cfg, self.device)
+        with trace.span("session.build.tables"):
+            self.net = prepare_network(c, cfg, self.device)
         self.n_pops = len(c.pop_sizes)
         self.drive = stim.compile_drive(cfg.stimulus, c, cfg, neuron,
                                         self.device)
         self.strategy = dlv.get_strategy(cfg.strategy)
         self.bound = None
         if self.plasticity is not None:
-            self.bound = self.plasticity.bind(c, cfg, self.net.tables)
+            with trace.span("session.build.plastic"):
+                self.bound = self.plasticity.bind(c, cfg, self.net.tables)
         self._step = self._fused_step if self.fused else self._split_step
         # the steps that differ from the steady one at the start of a run
         self.head = 0 if self.bound is None else (2 if self.fused else 1)
@@ -376,7 +392,7 @@ class _LoopBackend(Backend):
             sim.ring, live, spiked, t, self.c.n_exc, self.cfg)
         return sim._replace(ring=ring, overflow=sim.overflow + ovf), ids
 
-    def _fused_step(self, carry: Carry, i: int, tick=None):
+    def _fused_step(self, carry: Carry, i: int, phase=None):
         """Step ``i`` of a run (any ``i >= head`` is the steady step) of the
         rotated loop: K3, or K4 and the potentiation of step ``i - 1``'s
         spikes (the whole-table clip at ``i == 1``)."""
@@ -391,29 +407,32 @@ class _LoopBackend(Backend):
             sim, ps, self.net, self.prop, self.cfg, c.w_ext, c.n_total,
             c.n_exc, carry.spk_prev, self.drive, self.bound, trace=i > 0)
         if i > 0:                               # step i - 1's spikes
-            PL.stdp_pot_clip(ps.weights, x_pre, ids, self.bound.tables,
-                             self.bound.coef, clip_all=i == 1,
-                             kernel=self.bound.kernel)
+            with trace.span("step.stdp"):
+                PL.stdp_pot_clip(ps.weights, x_pre, ids, self.bound.tables,
+                                 self.bound.coef, clip_all=i == 1,
+                                 kernel=self.bound.kernel)
         return carry._replace(sim=sim, ps=ps, spk_prev=spiked), spiked
 
-    def _split_step(self, carry: Carry, i: int, tick=None):
+    def _split_step(self, carry: Carry, i: int, phase=None):
         """Step ``i`` of a run of the split loop: update, delivery and (in
         a plastic session) the whole STDP step, the whole-table clip at
-        ``i == 0``.  ``tick(phase)``, when given, marks each phase's end."""
+        ``i == 0``.  ``phase(name)`` opens each phase (its step span by
+        default)."""
         c, sim, ps = self.c, carry.sim, carry.ps
-        tick = tick or (lambda phase: None)
-        sim, spiked = update_phase(sim, self.net, self.prop, self.cfg,
-                                   c.w_ext, c.n_total, self.drive)
-        tick("update")
+        phase = phase or _phase_span
+        with phase("update"):
+            sim, spiked = update_phase(sim, self.net, self.prop, self.cfg,
+                                       c.w_ext, c.n_total, self.drive)
         if ps is None:
-            sim = deliver_phase(sim, self.net, self.cfg, spiked, c.n_exc)
-            tick("deliver")
+            with phase("deliver"):
+                sim = deliver_phase(sim, self.net, self.cfg, spiked,
+                                    c.n_exc)
         else:
-            sim, ids = self._deliver_live(sim, ps, spiked, sim.t)
-            sim = sim._replace(t=sim.t + 1)
-            tick("deliver")
-            ps = self.bound.step(ps, spiked, ids, clip_all=i == 0)
-            tick("plasticity")
+            with phase("deliver"):
+                sim, ids = self._deliver_live(sim, ps, spiked, sim.t)
+                sim = sim._replace(t=sim.t + 1)
+            with phase("plasticity"):
+                ps = self.bound.step(ps, spiked, ids, clip_all=i == 0)
         return carry._replace(sim=sim, ps=ps), spiked
 
     def _epilogue(self, carry: Carry, n_steps: int) -> Carry:
@@ -444,24 +463,25 @@ class _LoopBackend(Backend):
                                                       for p in step_probes)
 
     def _segment(self, carry: Carry, first: int, length: int, step_probes,
-                 stream_probes, tick=None):
+                 stream_probes, phase=None):
         """Steps ``first .. first + length - 1`` of a run (each past the
         head the steady one), recorded: returns the carry and each step
-        probe's list of values.  ``tick(None)`` marks each step's start and
-        ``tick("record")`` the probes' end."""
+        probe's list of values.  Each step is a ``step`` span; ``phase``
+        opens the split step's phases and the probes' (their step spans by
+        default)."""
+        phase = phase or _phase_span
         outs = [[] for _ in step_probes]
         for j in range(length):
-            if tick:
-                tick(None)
-            carry, spiked = self._step(carry, min(first + j, self.head),
-                                       tick)
-            if step_probes or stream_probes:
-                carry, vals = self._record(carry, spiked, step_probes,
-                                           stream_probes)
-                if tick:
-                    tick("record")
-                for buf, v in zip(outs, vals):
-                    buf.append(v)
+            with trace.span("step"):
+                carry, spiked = self._step(carry, min(first + j, self.head),
+                                           phase)
+                if step_probes or stream_probes:
+                    with phase("record"):
+                        carry, vals = self._record(carry, spiked,
+                                                   step_probes,
+                                                   stream_probes)
+                    for buf, v in zip(outs, vals):
+                        buf.append(v)
         return carry, outs
 
     def _data(self, carry: Carry, outs, step_probes, stream_probes) -> dict:
@@ -504,6 +524,20 @@ class _LoopBackend(Backend):
         for i in range(self.head + 1):
             carry, _ = self._step(carry, i)
         self._epilogue(carry, self.head + 1)
+        self._sync()
+
+    def step_census(self, state, n_steps: int, probes: Sequence) -> None:
+        """``n_steps`` steady steps, eagerly, with ``probes``, on a copy of
+        ``state`` and of its generator (as ``_warm_eagerly``): each a
+        ``step`` span, so that under a profiler every kernel falls under one
+        innermost step span (the drive's and the probes' device time apart,
+        which no graph replay gives).  The state is untouched."""
+        sim, ps = self._split_state(tree_map(torch.clone, state))
+        sim = sim._replace(generator=_clone_generator(sim.generator))
+        step_probes, stream_probes = split_probes(tuple(probes))
+        carry = self._carry(sim if ps is None else (sim, ps), stream_probes,
+                            None)
+        self._segment(carry, self.head, n_steps, step_probes, stream_probes)
         self._sync()
 
 
@@ -713,36 +747,43 @@ class FusedBackend(_LoopBackend):
             for out, buf in zip(entry.outs, outs):
                 out.index_copy_(0, at, torch.stack(buf))
             entry.row.add_(length)
-        return self.graph_type(segment, io.sim.generator, self._pool)
+        with trace.span("loop.capture"):
+            return self.graph_type(segment, io.sim.generator, self._pool)
 
     def _run_graphed(self, state, n_steps, probes, stream):
         step_probes, stream_probes = split_probes(probes)
         entry = self.graphs.get_or_build(
             self._key(n_steps, probes),
             lambda: self._capture(state, n_steps, probes))
-        io = self._load(state)
-        copy_into(entry.streams,
-                   self._stream_carries(stream_probes, stream))
-        entry.row.zero_()
-        if io.spk_prev is not None:
-            io.spk_prev.zero_()
-        entry.replay()
-        carry = self._epilogue(io._replace(streams=()), n_steps)
-        copy_into((io.sim, io.ps), (carry.sim, carry.ps))
-        gen = self._split_state(state)[0].generator
-        if gen is not None:
-            gen.set_state(self._generator.get_state())
-        data = {p.name: out.clone()
-                for p, out in zip(step_probes, entry.outs)}
-        data.update((p.name, tree_map(torch.clone, sc))
-                    for p, sc in zip(stream_probes, entry.streams))
+        with trace.span("loop.load"):
+            io = self._load(state)
+            copy_into(entry.streams,
+                      self._stream_carries(stream_probes, stream))
+            entry.row.zero_()
+            if io.spk_prev is not None:
+                io.spk_prev.zero_()
+        with trace.span("loop.replay"):
+            entry.replay()
+        with trace.span("loop.epilogue"):
+            carry = self._epilogue(io._replace(streams=()), n_steps)
+        with trace.span("loop.outputs"):
+            copy_into((io.sim, io.ps), (carry.sim, carry.ps))
+            gen = self._split_state(state)[0].generator
+            if gen is not None:
+                gen.set_state(self._generator.get_state())
+            data = {p.name: out.clone()
+                    for p, out in zip(step_probes, entry.outs)}
+            data.update((p.name, tree_map(torch.clone, sc))
+                        for p, sc in zip(stream_probes, entry.streams))
         return state, data
 
 
 class InstrumentedBackend(_LoopBackend):
     """The eager phase-split loop, each phase synchronised and timed: the
     paper's per-phase breakdown (Fig. 1b).  Cumulative seconds per phase
-    accumulate in ``self.timers``."""
+    accumulate in ``self.timers``: the sums of the phases' step spans
+    (``PHASE_SPANS``), which time themselves here whether or not a trace
+    records them."""
 
     name = "instrumented"
 
@@ -769,20 +810,17 @@ class InstrumentedBackend(_LoopBackend):
             self._warm_eagerly(state)
             self._warmed = True
 
-    def _ticker(self, timers: Dict[str, float]):
-        """``tick(phase)``: the phase's seconds since the last mark, once
-        the card is done with it, added to ``timers[phase]``;
-        ``tick(None)`` only sets the mark (as does making the ticker)."""
-        mark = [time.perf_counter()]
-
-        def tick(phase):
-            if phase is not None:
+    def _phases(self, timers: Dict[str, float]):
+        """``phase(name)``: the phase's step span, timed, the card
+        synchronised before it closes; its seconds are added to
+        ``timers[name]``."""
+        @contextlib.contextmanager
+        def phase(name):
+            with trace.span(PHASE_SPANS[name], timed=True) as s:
+                yield
                 self._sync()
-            now = time.perf_counter()
-            if phase is not None:
-                timers[phase] = timers.get(phase, 0.0) + now - mark[0]
-            mark[0] = now
-        return tick
+            timers[name] = timers.get(name, 0.0) + s.seconds
+        return phase
 
     @_sanitized
     def run(self, state, n_steps: int, probes: Sequence,
@@ -791,7 +829,7 @@ class InstrumentedBackend(_LoopBackend):
         self.warmup(state, n_steps, probes)
         carry, outs = self._segment(
             self._carry(state, stream_probes, stream), 0, n_steps,
-            step_probes, stream_probes, self._ticker(self.timers))
+            step_probes, stream_probes, self._phases(self.timers))
         return self._state_of(carry), self._data(carry, outs, step_probes,
                                                  stream_probes)
 
@@ -802,7 +840,7 @@ class InstrumentedBackend(_LoopBackend):
         (``repro/api/backends.py:556-570``)."""
         self.warmup(state, 1, ())
         carry, spiked = self._split_step(self._carry(state, (), None), 0,
-                                         self._ticker(timers))
+                                         self._phases(timers))
         return self._state_of(carry), spiked
 
 
@@ -983,9 +1021,9 @@ class ShardedBackend(FusedBackend):
                                f"{path} (its error is on rank 0)")
         return path
 
-    def _sharded_step(self, carry: Carry, i: int, tick=None):
-        """One step of this rank: update, gather, delivery.  ``tick`` marks
-        nothing (the phases are the graph's)."""
+    def _sharded_step(self, carry: Carry, i: int, phase=None):
+        """One step of this rank: update, gather, delivery.  ``phase``
+        opens nothing (the phases are the graph's)."""
         st, spiked = DD.sharded_step(
             carry.sim, self.net, self.prop, self.cfg, w_ext=self.c.w_ext,
             n_exc=self.c.n_exc, drive=self.drive, gather=self.world.gather)

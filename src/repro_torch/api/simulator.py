@@ -56,6 +56,7 @@ from repro_torch.core.connectivity import Connectome, build_connectome
 from repro_torch.core.device import session_device
 from repro_torch.core.engine import SimConfig
 from repro_torch.core.plasticity import PlasticState
+from repro_torch.perf import trace
 
 
 class Simulator:
@@ -133,7 +134,9 @@ class Simulator:
             return
         if not self.backend.built_for(self.connectome, self._asked,
                                       self.device):
-            self.backend.build(self.connectome, self._asked, self.device)
+            with trace.span("session.build"):
+                self.backend.build(self.connectome, self._asked,
+                                   self.device)
         self._build = self.backend.builds
 
     # -- session state ------------------------------------------------------
@@ -218,6 +221,19 @@ class Simulator:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _wait(self) -> None:
+        """A run's synchronise: a ``session.wait`` span, counted as
+        ``session.syncs``."""
+        trace.count("session.syncs")
+        with trace.span("session.wait"):
+            self._sync()
+
+    @staticmethod
+    def _host(x: torch.Tensor) -> np.ndarray:
+        """A run's read-back of ``x``, counted as ``session.syncs``."""
+        trace.count("session.syncs")
+        return x.cpu().numpy()
+
     def _resolve(self, probes) -> tuple:
         if probes is None:
             return self.probes
@@ -248,12 +264,23 @@ class Simulator:
             self.backend.warmup(self._state, self._steps(self.t_presim), ())
         self._sync()
 
+    def step_census(self, n_steps: int = 200) -> None:
+        """Run ``n_steps`` steady steps eagerly, with the session's probes,
+        on a copy of its state and generator (the backend's
+        ``step_census``): each a ``step`` span with its ``step.drive``,
+        ``step.deliver``, ``step.stdp`` and ``step.probe`` spans, so that a
+        profiler around it splits the step's device time by span.  The
+        session's state is not touched."""
+        self._require_state("step_census")
+        self._ensure_built()
+        self.backend.step_census(self._state, n_steps, self.probes)
+
     def _maybe_presim(self, presim_ms: Optional[float]) -> None:
         t = self.t_presim if presim_ms is None else float(presim_ms)
         if self._presim_done or t <= 0:
             return
         self._state, _ = self.backend.run(self._state, self._steps(t), ())
-        self._sync()
+        self._wait()
         self._presim_done = True
         self._check_overflow()
 
@@ -263,22 +290,25 @@ class Simulator:
             probes: Optional[Sequence] = None) -> RunResult:
         """Simulate ``t_ms`` of model time.  The presim transient
         (``config.t_presim`` unless ``presim_ms`` is given) runs untimed and
-        unrecorded once per session first, as in the paper's protocol."""
-        self._require_state("run")
-        self._ensure_built()
-        pr = self._resolve(probes)
-        self._maybe_presim(presim_ms)
-        n_steps = self._steps(t_ms)
-        timers0 = dict(self.timers)
-        self._sync()
-        t0 = time.perf_counter()
-        state, data = self.backend.run(self._state, n_steps, pr,
-                                       stream=self._stream_seeds(pr))
-        self._sync()
-        wall = time.perf_counter() - t0
-        timers = {k: v - timers0.get(k, 0.0)
-                  for k, v in self.timers.items()}
-        return self._advance(state, data, n_steps, pr, wall, timers)
+        unrecorded once per session first, as in the paper's protocol.
+        The run is a ``session.run`` span (``repro_torch.perf.trace``)."""
+        with trace.span("session.run"):
+            self._require_state("run")
+            self._ensure_built()
+            pr = self._resolve(probes)
+            self._maybe_presim(presim_ms)
+            n_steps = self._steps(t_ms)
+            timers0 = dict(self.timers)
+            self._wait()
+            t0 = time.perf_counter()
+            state, data = self.backend.run(self._state, n_steps, pr,
+                                           stream=self._stream_seeds(pr))
+            self._wait()
+            wall = time.perf_counter() - t0
+            timers = {k: v - timers0.get(k, 0.0)
+                      for k, v in self.timers.items()}
+            with trace.span("session.readback"):
+                return self._advance(state, data, n_steps, pr, wall, timers)
 
     def _stream_seeds(self, probes) -> dict:
         """The stream probes' carries this session has threaded so far (a
@@ -300,11 +330,10 @@ class Simulator:
         for p in stream_probes:
             carry = data.pop(p.name)
             self._stream_state[p.name] = carry
-            streams[p.name] = {"carry": tree_map(lambda x: x.cpu().numpy(),
-                                                  carry),
+            streams[p.name] = {"carry": tree_map(self._host, carry),
                                "meta": dict(p.meta)}
         overflow = self._check_overflow()
-        data = {k: v.cpu().numpy() for k, v in data.items()}
+        data = {k: self._host(v) for k, v in data.items()}
         return RunResult(
             data=data, t_model_ms=n_steps * self.sim_config.dt,
             n_steps=n_steps, dt=self.sim_config.dt, wall_s=wall,

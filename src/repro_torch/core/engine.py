@@ -41,6 +41,7 @@ from repro_torch.core.device import session_device
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels.lif_deliver import slot_index
+from repro_torch.perf.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,7 +166,9 @@ def update_phase(state: SimState, net: Network, prop: Propagators,
     arrivals = state.ring.index_select(0, slot)[0]           # [2, N+1]
     in_ex = arrivals[0, :n]
     in_in = arrivals[1, :n]
-    ext_ex, i_dc = _external_drive(state, net, w_ext, in_ex.dtype, drive)
+    with span("step.drive"):
+        ext_ex, i_dc = _external_drive(state, net, w_ext, in_ex.dtype,
+                                       drive)
     if ext_ex is not None:
         in_ex = in_ex + ext_ex
     pol = kpol.policy_of(cfg)
@@ -188,10 +191,12 @@ def fused_update_phase(state: SimState, net: Network, prop: Propagators,
     ``spiked_prev`` with zeros and delivers the last step's spikes after
     the loop.  Returns ``(state, spiked)`` with ``t`` advanced by one."""
     from repro_torch.kernels import ops as kops
-    ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
-    neuron, ring, spiked, ovf = kops.lif_deliver(
-        state.neuron, state.ring, state.t, spiked_prev, net.tables, prop,
-        ext_ex, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget)
+    with span("step.drive"):
+        ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
+    with span("step.deliver"):
+        neuron, ring, spiked, ovf = kops.lif_deliver(
+            state.neuron, state.ring, state.t, spiked_prev, net.tables,
+            prop, ext_ex, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget)
     return SimState(neuron, ring, state.t + 1, state.generator,
                     state.overflow + ovf), spiked
 
@@ -209,11 +214,13 @@ def fused_plastic_update_phase(state: SimState, ps, net: Network,
     ids are the caller's (``plasticity.stdp_pot_clip``).  Returns
     ``(state, ps', spiked, ids)``; ``ps'`` holds the new traces."""
     from repro_torch.kernels import ops as kops
-    ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
-    neuron, ring, spiked, ps, ids, ovf = kops.lif_deliver_plastic(
-        state.neuron, state.ring, state.t, spiked_prev, net.tables,
-        bound.tables.plastic_out, ps, prop, ext_ex, i_dc, n_exc=n_exc,
-        spike_budget=cfg.spike_budget, coef=bound.coef, trace=trace)
+    with span("step.drive"):
+        ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
+    with span("step.deliver"):
+        neuron, ring, spiked, ps, ids, ovf = kops.lif_deliver_plastic(
+            state.neuron, state.ring, state.t, spiked_prev, net.tables,
+            bound.tables.plastic_out, ps, prop, ext_ex, i_dc, n_exc=n_exc,
+            spike_budget=cfg.spike_budget, coef=bound.coef, trace=trace)
     return (SimState(neuron, ring, state.t + 1, state.generator,
                      state.overflow + ovf), ps, spiked, ids)
 
