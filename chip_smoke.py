@@ -65,7 +65,8 @@ Phases, each on its own line; any failed check exits non-zero:
    implies, with the same eager work around them, under
    ``torch.cuda.set_sync_debug_mode("error")``; the census of one eager
    step within the cast budget, with no host sync and no float64 tensor;
-   K3 once a step; no device-to-host copy and no float64 kernel in one
+   K3 and ``pop_counts`` once a step; no device-to-host copy and no
+   float64 kernel in one
    replayed body), ``[step_census]`` (the profiler's table of that body:
    each kernel's launches and device µs a step, their sum against the
    body replay's event time and the run's graphed ms a step) and
@@ -85,7 +86,8 @@ Phases, each on its own line; any failed check exits non-zero:
    against the eager split plastic loop, the run's head steps and
    whole-table clip included; the weights and traces exact),
    ``[plastic_path_eager]`` and ``[graph_contract] path=plastic`` (as
-   for the static path; K4 and ``stdp_update`` once a step);
+   for the static path; K4, ``stdp_update`` and ``pop_counts`` once a
+   step);
 8. the kernels' times at the main paths' shapes beside their bounds:
    device time per call from ``torch.profiler`` (``ms``) and the
    back-to-back call time from CUDA events (``call_ms``); for K3 and K4
@@ -99,7 +101,9 @@ Phases, each on its own line; any failed check exits non-zero:
    the first five phases, ``[K2_graph]``: ids and overflow exact, the ring
    within 1e-5) and for ``stdp_update``'s two per-step forms
    (``[stdp_phases]`` over ``stdp.PHASES``, ``[stdp_graph]``: weights and
-   traces bitwise);
+   traces bitwise); ``[pop_counts_probe]``, the probe's kernel against its
+   plain version and an ``index_add_`` on 64 spike vectors (equal counts),
+   each one's time;
 9. the session API on the full-scale connectome, each sub-phase's
    launches counted from 0 (the kernels of its path must have launched):
    ``[shared_backend]``, two static sessions on one ``FusedBackend``
@@ -158,7 +162,8 @@ Phases, each on its own line; any failed check exits non-zero:
    scale, strategy="ell"), backend="sharded")`` without a process group,
    graphed: warmup, 100 ms presim, a ``--t-sim`` ms run, RTF (beside the
    main path's from the same call), overflow 0, rates in band, K1 and
-   K2's local-ring form once a step and nothing else; then
+   K2's local-ring form once a step, ``pop_counts`` once a recorded step
+   and nothing else; then
    ``[sharded_one_hold]``, 300 steps from one state and generator state
    against a fused session with ``kernels="split"``: the registry against
    its spikes, the population counts, ``t``, overflow, refrac and the
@@ -179,7 +184,8 @@ Phases, each on its own line; any failed check exits non-zero:
    the checkpoint's bytes, the save and restore seconds; then the
    resident session (B) and the other (A) suspended, the device bytes
    each suspend frees, both resumed and run 150 steps against each other
-   (the same checks, no capture); K1 and K2's local-ring form only;
+   (the same checks, no capture); K1, K2's local-ring form and
+   ``pop_counts`` only;
    ``[sharded_checkpoint_nccl]``, the same over an NCCL group of one, the
    save's gather through the collective; ``[serve_sharded]``, a
    ``SessionManager`` on ``backend="sharded"`` at scale
@@ -189,7 +195,8 @@ Phases, each on its own line; any failed check exits non-zero:
    non-resident session suspended (bytes freed) and resumed, each 20 ms
    against a twin carried from its state, and two coalesced sessions
    against two run one by one (spikes and counts exact, the state within
-   1e-5), K1 and K2's local-ring form only; ``[core_simulate]``, ``repro_torch.core.simulate`` with
+   1e-5), K1, K2's local-ring form and ``pop_counts`` only;
+   ``[core_simulate]``, ``repro_torch.core.simulate`` with
    ``kernels="split"``: 100 ms from a fresh state, then 100 ms timed (ms a
    step; K1 and K2 once a step and nothing else, overflow 0, rates in
    band) and 300 steps recording spikes, held exact against the
@@ -1024,6 +1031,10 @@ def launched(phase: str, want) -> dict:
 #: [sharded_four] and [K2_local]: the ranks the full-scale network is cut
 #: into, and the rank whose column block K2's local-ring form is held on
 SHARD_WORLD, SHARD_RANK = 4, 2
+#: [sharded_checkpoint] and [serve_sharded]: the kernels their sharded
+#: sessions launch, and no other: K1, K2's local-ring form and the
+#: kernel of the pop_counts probe they record
+SHARDED_SESSION_KERNELS = ("lif_update", "ell_deliver_local", "pop_counts")
 #: rows of the tables hashed at once when [sharded_localize] checks that
 #: the shards hold the connectome
 DIGEST_ROWS = 4096
@@ -1159,8 +1170,9 @@ def hold_sharded(phase: str, sharded, fused, t_ms: float) -> dict:
 def sharded_run(phase: str, sim, t_ms: float) -> dict:
     """The graphed sharded session's run of ``t_ms`` after its presim,
     after ``warmup``: RTF, overflow 0, rates in band, K1 and K2's
-    local-ring form once a step and no other step kernel.  Returns the
-    line's fields and the launches."""
+    local-ring form once a step, the ``pop_counts`` probe's kernel once a
+    recorded step, and no other kernel.  Returns the line's fields and
+    the launches."""
     from repro_torch.kernels import _build
     pol = sim.sim_config.kernels
     if not (pol.step == "split" and pol.kernels and pol.deliver == "kernel"
@@ -1174,11 +1186,13 @@ def sharded_run(phase: str, sim, t_ms: float) -> dict:
     res = sim.run(t_ms)
     counts = dict(_build.launches)
     steps = sim._steps(sim.t_presim) + res.n_steps
-    want = {"lif_update": steps, "ell_deliver_local": steps}
+    want = {"lif_update": steps, "ell_deliver_local": steps,
+            "pop_counts": res.n_steps}
     if any(counts[k] != v for k, v in want.items()) \
             or any(v for k, v in counts.items() if k not in want):
-        fail(f"{phase}: launched {counts} for {steps} steps (K1 and K2's "
-             f"local-ring form once a step, nothing else)")
+        fail(f"{phase}: launched {counts} for {steps} steps, {res.n_steps} "
+             f"recorded (K1 and K2's local-ring form once a step, "
+             f"pop_counts once a recorded step, nothing else)")
     if res.overflow != 0:
         fail(f"{phase}: overflow {res.overflow}")
     rates = res.summary()["rates_hz"]
@@ -1581,11 +1595,11 @@ def sharded_checkpoint(phase: str, c, cfg, card: str, dev) -> tuple:
             fail(f"{phase}: the resumed sessions' registries differ")
         out["resumed_elements_with_other_bits"] = json.dumps(
             compare_states(f"{phase} (resumed)", a.state, b.state))
-    counts = launched(phase, ("lif_update", "ell_deliver_local"))
+    counts = launched(phase, SHARDED_SESSION_KERNELS)
     if any(v for k, v in counts.items()
-           if k not in ("lif_update", "ell_deliver_local")):
-        fail(f"{phase}: launched {counts} (K1 and K2's local-ring form "
-             f"only)")
+           if k not in SHARDED_SESSION_KERNELS):
+        fail(f"{phase}: launched {counts} (K1, K2's local-ring form and "
+             f"pop_counts only)")
     out.update(steps_before_save=CKPT_STEPS, steps_a_b=CKPT_STEPS,
                presim_ms=cfg.t_presim, captures_by_restore=0,
                exact=json.dumps(["spikes", "pop_counts", "t", "overflow",
@@ -1681,11 +1695,11 @@ def serve_sharded(args, card: str, dev) -> tuple:
             bits[x.id] = compare_states(f"serve_sharded (coalesced "
                                         f"{x.id})", x.sim.state, y.sim.state)
         out["coalesced_bits"] = json.dumps(bits)
-    counts = launched("serve_sharded", ("lif_update", "ell_deliver_local"))
+    counts = launched("serve_sharded", SHARDED_SESSION_KERNELS)
     if any(v for k, v in counts.items()
-           if k not in ("lif_update", "ell_deliver_local")):
-        fail(f"serve_sharded: launched {counts} (K1 and K2's local-ring "
-             f"form only)")
+           if k not in SHARDED_SESSION_KERNELS):
+        fail(f"serve_sharded: launched {counts} (K1, K2's local-ring form "
+             f"and pop_counts only)")
     out.update(chunks_equal_to_twin=True, resumed_equal_to_twin=True,
                coalesced_equal_to_sequential=True,
                launches=json.dumps({k: v for k, v in counts.items() if v}),
@@ -3106,7 +3120,8 @@ def main() -> None:
     # [analysis] on the main path's session: the graph contracts, the
     # replayed body's kernels, sanitize() (which leaves a NaN in the state)
     t0 = time.perf_counter()
-    contract = graph_contract_line("static", sim, card, ("lif_deliver",))
+    contract = graph_contract_line("static", sim, card,
+                                   ("lif_deliver", "pop_counts"))
     step_census_line("static", contract, ms_step, card)
     sanitize_line(sim, card)
     analysis_s = {"static": time.perf_counter() - t0}
@@ -3222,7 +3237,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     graph_contract_line("plastic", sim, card,
-                        ("lif_deliver_plastic", "stdp_update"))
+                        ("lif_deliver_plastic", "stdp_update", "pop_counts"))
     analysis_s["plastic"] = time.perf_counter() - t0
     spikes_pl = max(1, round(float(res_pl["pop_counts"].sum())
                              / res_pl.n_steps))
@@ -3274,22 +3289,30 @@ def main() -> None:
         K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
         K2_index_add=json.dumps(k2_lib))
 
-    # the pop_counts probe (a running count differenced at the population
-    # bounds) against the index_add_ into 8 counters that it replaced, on
+    # the pop_counts probe: its kernel (one launch) against its plain
+    # version (the running count differenced at the population bounds) and
+    # the index_add_ into 8 counters that the plain version replaced, on
     # the same spike vectors: equal counts, and each one's device time
     from repro_torch.api import probes as PR
     pop_of = torch.as_tensor(c.pop_of, device=dev)
     pc_probe = PR.pop_counts()
     pc_ctx = [PR.ProbeContext(None, x, SimpleNamespace(pop_of=pop_of), 8)
               for x in spks]
+    pc_plain_ctx = [x._replace(kernels=False) for x in pc_ctx]
     old_counts = lambda i: torch.zeros(8, dtype=torch.int32, device=dev) \
         .index_add_(0, pop_of, spk_of(i).to(torch.int32))
     for i in range(len(spks)):
-        if not torch.equal(pc_probe(pc_ctx[i]), old_counts(i)):
-            fail("the pop_counts probe differs from index_add_'s counts")
+        got = pc_probe(pc_ctx[i])
+        if not (torch.equal(got, pc_probe(pc_plain_ctx[i]))
+                and torch.equal(got, old_counts(i))):
+            fail("the pop_counts kernel differs from its plain version's "
+                 "or index_add_'s counts")
+    pc = timed(lambda i: pc_probe(pc_ctx[i % len(pc_ctx)]))
+    pc_plain = timed(lambda i: pc_probe(pc_plain_ctx[i % len(pc_ctx)]))
+    # the spikes and the 9 bounds read, the 8 counts written
+    pc_bytes = N + 4 * (9 + 8)
     say("pop_counts_probe", spikes=spikes_per_step, counts_equal=True,
-        running_count=json.dumps(timed(lambda i: pc_probe(
-            pc_ctx[i % len(pc_ctx)]))),
+        kernel=json.dumps(pc), running_count=json.dumps(pc_plain),
         index_add=json.dumps(timed(old_counts)))
 
     def k3_on(r):
@@ -3723,6 +3746,9 @@ def main() -> None:
         | {"ms_f32": att["k6_f32"]["ms"],
            "source_f32": "src/repro_torch/csrc/flash_attention.cu",
            "ms_32k": att["ms_32k"], "max_err_over_bar": att["max_over_bar"]},
+        row("pop_counts", "pop_counts.cu",
+            "src/repro/api/probes.py:59 (XLA segment_sum, no Pallas kernel)",
+            pc, pc_plain, pc_bytes, N, None, max_err["pop_counts"]),
     ]
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -41,8 +41,9 @@ from repro_torch.perf.step_analysis import op_census
 #: scenarios, 23 (``stdp_ee.json`` on the one-kernel step, on the CPU,
 #: where the plain versions run op by op).  The static main path's step
 #: (``ell``, ``pop_counts``, the 8 Hz background) dispatches 9 there, in 85
-#: ops, and 2 on the card, in 20 ops around K3 (the drive's two casts;
-#: ``chip_smoke.py``'s ``[graph_contract]``, PERF.md).  The small-op work
+#: ops, and 2 on the card, in 15 ops around K3 and the probe's kernel (the
+#: drive's two casts; ``chip_smoke.py``'s ``[graph_contract]``, PERF.md;
+#: 20 ops while the probe was six ops on the card).  The small-op work
 #: (ROADMAP §2, item 1) lowers these counts, and this budget with them.
 DEFAULT_MAX_CASTS = 23
 

@@ -456,7 +456,8 @@ class _LoopBackend(Backend):
         advanced."""
         ctx = ProbeContext(carry.sim, spiked, self.net, self.n_pops,
                            carry.ps, None if carry.ps is None
-                           else self.bound.plastic_mask)
+                           else self.bound.plastic_mask,
+                           self.cfg.kernels.kernels)
         streams = tuple(p.update(sc, ctx if p.needs == "ctx" else spiked)
                         for p, sc in zip(stream_probes, carry.streams))
         return carry._replace(streams=streams), tuple(p(ctx)

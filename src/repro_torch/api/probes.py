@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import plasticity
+from repro_torch.kernels import pop_counts as pop_counts_kernel
 
 
 class ProbeContext(NamedTuple):
@@ -51,6 +52,8 @@ class ProbeContext(NamedTuple):
     n_pops: int                 # population count
     plastic: object = None      # PlasticState, plastic runs only
     plastic_mask: Optional[torch.Tensor] = None  # [N+1, K] bool
+    kernels: bool = True        # the session's policy: the hand-written
+                                # kernels, else the plain versions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,15 +82,13 @@ def _on_device(cache: dict, device: torch.device, key,
 
 def pop_counts() -> Probe:
     """Per-population spike counts.  ``pop_of`` is sorted, so population
-    p is the segment ``[e_{p-1}, e_p)`` and its count is the difference of
-    the int32 running spike count at the segments' bounds: the reference's
-    sorted ``segment_sum`` (``repro/api/probes.py:59-65``), bit for bit.
-
-    A few small ops a step (the running count, a gather at the 9 bounds
-    and a difference) and no atomics.  The ``index_add_`` this replaces
-    serialised N atomic adds into 8 counters, 58 us of device time a step
-    at full scale on an H100, which a CUDA graph of the loop would have
-    kept as most of the step.
+    p is the segment ``[at[p], at[p + 1])`` of the spike vector, and its
+    count is that segment's: the reference's sorted ``segment_sum``
+    (``repro/api/probes.py:59-65``), bit for bit.  On the card one launch
+    of ``kernels/pop_counts.py`` a step; on the CPU, and under the
+    ``reference`` policy, its plain version (the int32 running count
+    differenced at the bounds).  The int32 bounds are built once, at the
+    probe's first eager evaluation.
     """
     bounds_cache: dict = {}
 
@@ -97,14 +98,14 @@ def pop_counts() -> Probe:
         def bounds():
             ends = torch.searchsorted(
                 pop_of, torch.arange(ctx.n_pops, dtype=pop_of.dtype,
-                                     device=pop_of.device), right=True)
+                                     device=pop_of.device), right=True,
+                out_int32=True)
             return torch.cat([ends.new_zeros(1), ends])
         at = _on_device(bounds_cache, pop_of.device,
                         (pop_of.data_ptr(), pop_of.device, pop_of.shape[0],
                          ctx.n_pops), bounds)
-        running = torch.cumsum(ctx.spiked, 0, dtype=torch.int32)
-        v = torch.nn.functional.pad(running, (1, 0)).index_select(0, at)
-        return v[1:] - v[:-1]
+        return pop_counts_kernel.pop_counts(ctx.spiked, at,
+                                            kernel=ctx.kernels)
     return Probe("pop_counts", fn)
 
 

@@ -15,7 +15,8 @@ local-ring form, the sharded step's delivery, is counted apart as
 ``gated_spike_matvec``, lives in ``spike_deliver``, and K6,
 ``flash_attention``, is two kernels: bfloat16 on the tensor cores in
 ``flash_attention_sm90``, float32 on the CUDA cores in
-``flash_attention``).  A wrapper adds one where it launches its kernel,
+``flash_attention``; ``pop_counts``, the probe's per-population spike
+count, in ``pop_counts``).  A wrapper adds one where it launches its kernel,
 and nowhere else, so a run can show that its path went through the
 kernels (``reset_launches`` before, read after).
 """
@@ -43,6 +44,7 @@ SOURCES = {
     "spike_deliver": "spike_deliver.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_sm90": "flash_attention_sm90.cu",
+    "pop_counts": "pop_counts.cu",
 }
 #: kernel name -> the libraries that hold it
 KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("lif_deliver",),
@@ -51,7 +53,8 @@ KERNELS = {"lif_update": ("lif_update",), "ell_deliver": ("lif_deliver",),
            "lif_deliver_plastic": ("lif_deliver",),
            "stdp_update": ("stdp_update",),
            "gated_spike_matvec": ("spike_deliver",),
-           "flash_attention": ("flash_attention_sm90", "flash_attention")}
+           "flash_attention": ("flash_attention_sm90", "flash_attention"),
+           "pop_counts": ("pop_counts",)}
 
 # --fmad=false on top of the explicit __fmul_rn/__fadd_rn: no multiply-add
 # may contract into an FMA, or V would differ from the plain version.

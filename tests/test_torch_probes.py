@@ -3,7 +3,14 @@ package's, on the CPU, from the same seeded numpy inputs.
 
 * ``pop_counts`` (a running count differenced at the populations' bounds)
   against the reference's sorted ``segment_sum``, on the scale-0.02
-  network's ``pop_of`` and on one with an empty population: bitwise.
+  network's ``pop_of``, on ``pop_counts_cases``' layouts (PD14's
+  full-scale sizes at four densities, empty and single populations,
+  bounds off 16-byte alignment, a sharded registry's spiking tail) and on
+  one with an empty population: bitwise.  The card's kernel is held to the
+  plain version on the same cases (``test_torch_pop_counts_card.py``).
+  On the CPU the probe takes the plain version and launches nothing; the
+  kernel's wrapper raises before a launch on a wrong input, and the
+  ``reference`` policy takes the plain version on any device.
 * The ``spike_stats`` carry (``validate.stats.update_carry``) after 137
   steps of a random raster (bins of 5 closing, neurons that never spike):
   every field bitwise.
@@ -13,6 +20,10 @@ package's, on the CPU, from the same seeded numpy inputs.
 * ``recording.spike_trains``, ``cv_isi`` and ``pairwise_correlation`` on
   a raster: equal to the reference's.
 """
+import sys
+import types
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,7 +37,13 @@ from repro.validate import stats as JVS
 from repro_torch.api import probes as PR
 from repro_torch.core import recording as REC
 from repro_torch.core.plasticity import PlasticState
+from repro_torch.kernels import _build
+from repro_torch.kernels import pop_counts as KP
+from repro_torch.perf import trace
 from repro_torch.validate import stats as VS
+
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import pop_counts_cases  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
@@ -54,8 +71,21 @@ def _pop_counts_pair(pop_of: np.ndarray, spiked: np.ndarray, n_pops: int):
             PR.pop_counts()(pctx).numpy())
 
 
-@pytest.mark.parametrize("density", [0.0, 0.01, 0.3, 1.0])
+@pytest.mark.parametrize("density", [
+    *(pytest.param(d, id=str(d)) for d in (0.0, 0.01, 0.3, 1.0)),
+    *pop_counts_cases.CASES])
 def test_pop_counts_segment_sum_bitwise(density):
+    """A density on the scale-0.02 network, or a case of
+    ``pop_counts_cases`` by name."""
+    if isinstance(density, str):
+        before = _build.launches["pop_counts"]
+        for seed in range(3):
+            pop_of, spiked, n_pops, _ = pop_counts_cases.case(density, seed)
+            want, got = _pop_counts_pair(pop_of, spiked, n_pops)
+            assert got.dtype == np.int32 and got.shape == (n_pops,)
+            np.testing.assert_array_equal(got, want)
+        assert _build.launches["pop_counts"] == before
+        return
     c = jax_build_connectome(scale=0.02, seed=55)
     pop_of = np.asarray(c.pop_of, np.int32)
     rng = np.random.default_rng(int(density * 100))
@@ -79,6 +109,98 @@ def test_pop_counts_with_an_empty_population():
     ctx = PR.ProbeContext(None, torch.ones(pop_of.size, dtype=torch.bool),
                           _Net(torch.from_numpy(pop_of)), 8)
     assert probe(ctx).tolist() == [0, 3, 6, 0, 4, 0, 0, 2]
+
+
+def test_pop_counts_on_the_cpu_launches_nothing():
+    """A CPU spike vector takes the plain version, whatever the policy,
+    and adds no ``launches.pop_counts``."""
+    pop_of, spiked, n_pops, _ = pop_counts_cases.case("pd14_density_0.02")
+    net = _Net(torch.from_numpy(pop_of))
+    probe = PR.pop_counts()
+    before = trace.counters()["launches.pop_counts"]
+    got = [probe(PR.ProbeContext(None, torch.from_numpy(spiked), net,
+                                 n_pops, kernels=k)) for k in (True, False)]
+    assert trace.counters()["launches.pop_counts"] == before
+    assert torch.equal(got[0], got[1]) and got[0].dtype == torch.int32
+
+
+def test_pop_counts_kernel_is_counted():
+    """``KERNELS`` lists the kernel in its own library, and
+    ``trace.counters()`` reports its launches."""
+    assert _build.KERNELS["pop_counts"] == ("pop_counts",)
+    assert _build.SOURCES["pop_counts"] == "pop_counts.cu"
+    assert (_build.CSRC / "pop_counts.cu").exists()
+    _build.launches["pop_counts"] += 2
+    try:
+        assert trace.counters()["launches.pop_counts"] \
+            == _build.launches["pop_counts"]
+    finally:
+        _build.launches["pop_counts"] -= 2
+
+
+@pytest.fixture
+def kernel_on_meta(monkeypatch):
+    """``meta`` tensors stand for CUDA ones: the wrapper takes them as on
+    the card, and a stub library records each launch's arguments."""
+    calls = []
+
+    def launch(*args):
+        calls.append(args)
+        return 0
+
+    monkeypatch.setattr(KP, "DEVICE_TYPE", "meta")
+    monkeypatch.setattr(_build, "library", lambda name: types.SimpleNamespace(
+        pop_counts_launch=launch, kernel_error_string=lambda code: b"stub"))
+    monkeypatch.setattr(_build, "stream_of", lambda t: None)
+    return calls
+
+
+def _meta(n, dtype):
+    return torch.empty(n, dtype=dtype, device="meta")
+
+
+def test_pop_counts_probe_launches_once_a_step(kernel_on_meta):
+    """Off the CPU the probe is one launch a step, with int32 bounds and
+    ``n_pops`` blocks, into an int32 ``[n_pops]`` output; under the
+    ``reference`` policy (``kernels=False``) it launches nothing."""
+    net = _Net(_meta(100, torch.int32))
+    probe = PR.pop_counts()
+    before = _build.launches["pop_counts"]
+    for step in range(3):
+        out = probe(PR.ProbeContext(None, _meta(100, torch.bool), net, 8))
+        assert out.shape == (8,) and out.dtype == torch.int32
+        assert _build.launches["pop_counts"] == before + step + 1
+    assert [a[3].value for a in kernel_on_meta] == [8] * 3
+    out = probe(PR.ProbeContext(None, _meta(100, torch.bool), net, 8,
+                                kernels=False))
+    assert out.shape == (8,) and out.dtype == torch.int32
+    assert _build.launches["pop_counts"] == before + 3
+    assert len(kernel_on_meta) == 3
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("uint8_spikes", TypeError, "bool spike vector"),
+    ("int64_bounds", TypeError, "int32 bounds"),
+    ("strided_spikes", ValueError, "contiguous"),
+    ("strided_bounds", ValueError, "contiguous"),
+    ("cpu_bounds", ValueError, "CUDA device"),
+    ("no_bounds", ValueError, r"\[n_pops \+ 1\] bounds"),
+])
+def test_pop_counts_wrapper_guards(kernel_on_meta, case, exc, match):
+    """The wrapper raises before any launch on a wrong input."""
+    spiked = _meta(100 if case != "strided_spikes" else 200,
+                   torch.uint8 if case == "uint8_spikes" else torch.bool)
+    at = {"int64_bounds": _meta(9, torch.int64),
+          "strided_bounds": _meta(18, torch.int32)[::2],
+          "cpu_bounds": torch.zeros(9, dtype=torch.int32),
+          "no_bounds": _meta(0, torch.int32)}.get(
+              case, _meta(9, torch.int32))
+    if case == "strided_spikes":
+        spiked = spiked[::2]
+    before = _build.launches["pop_counts"]
+    with pytest.raises(exc, match=match):
+        KP.pop_counts(spiked, at)
+    assert _build.launches["pop_counts"] == before and not kernel_on_meta
 
 
 def test_spike_stats_carry_bitwise():
