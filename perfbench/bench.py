@@ -2,15 +2,18 @@
 
 A cell of ``BENCHMARK.json`` names a configuration and a traffic mix; the
 harness reads them from ``perfbench/configs/<config>.json`` and
-``perfbench/traffic/<traffic>.json``, the check's limits from
+``perfbench/traffic/<traffic>.json``, the network the configuration names
+from ``perfbench/networks/<network>.py`` (its draw, session, followed
+state and reference: ``perfbench/networks/pd14.py`` says what a network
+module provides), the check's limits from
 ``perfbench/limits/<workload>.json``, and each metric from its reader,
-``perfbench/metrics/<metric>.py``.  So a cell, a configuration, a mix or a
-metric is added as files, with no code edited.
+``perfbench/metrics/<metric>.py``.  So a cell, a configuration, a network,
+a mix or a metric is added as files, with no code edited.
 
 The run (``run_cell``):
 
-1. set-up: the connectome drawn on the device from the seed
-   (``perfbench/netgen.py``), ``repro_torch.api.Simulator`` built on it
+1. set-up: the network drawn on the device from the seed (the network
+   module's ``draw``), the port's ``Simulator`` built on its connectome
    (``session.build_s``), the graphs of the mix's run length and of the
    presim captured (``loop.capture_s``), the presim, one warm unit of the
    mix; the program's initial state and tables checked against the seed
@@ -33,6 +36,7 @@ import gc
 import importlib.util
 import json
 import random
+import re
 import sys
 import time
 from pathlib import Path
@@ -42,11 +46,11 @@ import numpy as np
 import torch
 
 from perfbench import check as check_mod
-from perfbench import netgen
 from perfbench import trace as trace_mod
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "repro")
+NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}")
 
 
 class RunError(RuntimeError):
@@ -92,14 +96,31 @@ def cell_files(root: Path, workload: str) -> dict:
             "per_layer": [x for x in m["per_layer"] if mine(x)]}
 
 
+def _load(path: Path, module: str):
+    spec = importlib.util.spec_from_file_location(module, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def reader(name: str, root: Path = HERE.parent):
     """The ``read(record)`` function of metric ``name`` of ``root``."""
     path = root / "perfbench" / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"perfbench_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(path, f"perfbench_metric_{name.replace('.', '_')}").read
+
+
+def load_network(config: dict, root: Path = HERE.parent):
+    """The module of the network that ``config`` names,
+    ``perfbench/networks/<network>.py`` of ``root``."""
+    name = config.get("network")
+    if not isinstance(name, str) or not NAME.fullmatch(name):
+        raise RunError(f"configuration {config.get('name')!r} names no "
+                       f"network (its \"network\" is {name!r})")
+    path = root / "perfbench" / "networks" / f"{name}.py"
+    if not path.is_file():
+        raise RunError(f"no network module perfbench/networks/{name}.py "
+                       f"for configuration {config.get('name')!r}")
+    return _load(path, f"perfbench_network_{name.replace('.', '_')}")
 
 
 # -- set-up -------------------------------------------------------------------
@@ -111,43 +132,18 @@ def _seeds(seed: int) -> dict:
     return {name: rng.getrandbits(62) for name in ("net", "key", "sample")}
 
 
-def _simulator(config: dict, traffic: dict, c, key: int, device):
-    from repro_torch.api import Simulator
-    from repro_torch.configs.microcircuit import MicrocircuitConfig
-    model = MicrocircuitConfig(
-        scale=config["scale"], dt=config["dt_ms"], strategy=config["strategy"],
-        t_presim=config["t_presim_ms"], seed=0, kernels=config["kernels"])
-    return Simulator(model, connectome=c, key=key, device=device,
-                     probes=tuple(traffic["probes"]),
-                     stimulus=traffic["stimulus"],
-                     plasticity=config.get("plasticity"))
-
-
-def _state_tensors(state) -> dict:
-    """The leaves of a session's state the reference follows, cloned."""
-    sim, ps = (state, None) if hasattr(state, "ring") else state
-    out = {"V": sim.neuron.V.clone(), "I_ex": sim.neuron.I_ex.clone(),
-           "I_in": sim.neuron.I_in.clone(),
-           "refrac": sim.neuron.refrac.clone(), "ring": sim.ring.clone(),
-           "t": sim.t.clone(),
-           "generator_state": sim.generator.get_state()}
-    if ps is not None:
-        out.update(weights=ps.weights.clone(), x_pre=ps.x_pre.clone(),
-                   x_post=ps.x_post.clone())
+def _state_tensors(network, state) -> dict:
+    """The leaves of a session's state the reference follows, cloned, and
+    its generator's state."""
+    out = {k: v.clone() for k, v in check_mod.leaves(network, state).items()}
+    out["generator_state"] = check_mod.sim_state(state).generator.get_state()
     return out
 
 
-def _copy_state(dst, src: dict) -> None:
+def _copy_state(network, dst, src: dict) -> None:
     """Copy a kept state back into the session's own tensors (in place;
     the generator goes on)."""
-    sim, ps = (dst, None) if hasattr(dst, "ring") else dst
-    pairs = [(sim.neuron.V, "V"), (sim.neuron.I_ex, "I_ex"),
-             (sim.neuron.I_in, "I_in"), (sim.neuron.refrac, "refrac"),
-             (sim.ring, "ring"), (sim.t, "t")]
-    if ps is not None:
-        pairs += [(ps.weights, "weights"), (ps.x_pre, "x_pre"),
-                  (ps.x_post, "x_post")]
-    for tensor, key in pairs:
+    for key, tensor in check_mod.leaves(network, dst).items():
         tensor.copy_(src[key])
 
 
@@ -186,6 +182,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if overrides:
         config.update(overrides.get("config", {}))
         traffic.update(overrides.get("traffic", {}))
+    network = load_network(config, root)
     dev = torch.device("cuda" if device is None else device)
     on_card = dev.type == "cuda"
     seeds = _seeds(seed)
@@ -193,34 +190,34 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     _say("imports done", t_start)
 
     # 1. set-up
-    net = netgen.draw(config["scale"], seeds["net"], dev,
-                      dt=config["dt_ms"])
+    net = network.draw(config, seeds["net"], dev)
     sums = check_mod.table_sums(net.targets, net.weights, net.dbins)
     keys = None
     if config.get("plasticity"):
         pop_of = torch.repeat_interleave(
             torch.arange(len(net.pop_sizes), device=dev),
             torch.as_tensor(net.pop_sizes, device=dev))
-        keys = check_mod.projection_keys(net.targets, pop_of)
+        keys = check_mod.projection_keys(net.targets, pop_of,
+                                         len(net.pop_sizes))
         del pop_of
     degrees = net.stats
     _say(f"drawn {net.n_total} neurons, {int(net.k_per_proj.sum())} "
          f"synapses, K {net.targets.shape[1]}", t_start)
-    c = netgen.connectome(net)
+    c = network.connectome(net)
     del net
     _say("connectome on the host", t_start)
     if on_card:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    sim = _simulator(config, traffic, c, seeds["key"], dev)
+    sim = network.simulator(config, traffic, c, seeds["key"], dev)
     _sync(dev)
     spans["session.build_s"] = time.perf_counter() - t0
     _say(f"session built in {spans['session.build_s']:.3f} s", t_start)
-    start = check_mod.start_check(sim, sums, c, seeds["key"])
+    start = check_mod.start_check(network, sim, sums, c, seeds["key"])
     if fault is not None:
         fault(sim)
-    pattern = Pattern.of(traffic, sim, keys)
+    pattern = Pattern.of(traffic, sim, network, keys)
     t0 = time.perf_counter()
     sim.warmup(pattern.unit_ms, include_presim=True)
     spans["loop.capture_s"] = time.perf_counter() - t0
@@ -258,7 +255,8 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     if on_card:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    numbers = check_mod.check(c, config, traffic, segments, start, dev)
+    numbers = check_mod.check(network, c, config, traffic, segments, start,
+                              dev)
     _say(f"checked {numbers['segments']} segments", t0)
     metrics = files["per_layer"] if trace else files["end_to_end"]
     values = {}
@@ -309,12 +307,14 @@ class Pattern:
     """How a mix drives the session: a unit (a run or a chunk) repeated
     over the window."""
 
-    def __init__(self, traffic: dict, sim, keys=None):
+    def __init__(self, traffic: dict, sim, network, keys=None):
         self.traffic, self.sim, self.keys = traffic, sim, keys
+        self.network = network
+        self.n_pops = len(sim.connectome.pop_sizes)
         self.weight_runs = int(traffic["check"].get("weight_runs", 0)) \
             if keys is not None else 0
         self.kept: dict = {}          # slot -> (item, start, weights_sq)
-        self.counts: list = []        # per unit, [steps, 8] on the host
+        self.counts: list = []        # per unit, [steps, n_pops] on the host
         self.walls: list = []         # per unit, host seconds
         self.failed = 0
         self.window_s = 0.0
@@ -322,23 +322,24 @@ class Pattern:
         self.dt = sim.sim_config.dt
 
     @staticmethod
-    def of(traffic: dict, sim, keys=None) -> "Pattern":
-        """The mix's pattern; ``keys`` (``check.projection_keys`` of the
-        drawn network) weigh the plastic weights' change in the sample's
-        first ``weight_runs`` slots."""
+    def of(traffic: dict, sim, network, keys=None) -> "Pattern":
+        """The mix's pattern of the session ``sim`` of ``network`` (its
+        module); ``keys`` (``check.projection_keys`` of the drawn network)
+        weigh the plastic weights' change in the sample's first
+        ``weight_runs`` slots."""
         kind = traffic["pattern"]
-        return {"free": FreeRuns, "loop": ClosedLoop}[kind](traffic, sim,
-                                                           keys)
+        return {"free": FreeRuns, "loop": ClosedLoop}[kind](
+            traffic, sim, network, keys)
 
     def after_presim(self) -> None:
         """The state the runs go back to, when the mix restores one."""
-        self.saved = _state_tensors(self.sim.state) \
+        self.saved = _state_tensors(self.network, self.sim.state) \
             if self.traffic.get("restore") == "after_presim" else None
 
     def unit(self):
         """One unit: the session's ``RunResult`` (counts on the host)."""
         if self.saved is not None:
-            _copy_state(self.sim.state, self.saved)
+            _copy_state(self.network, self.sim.state, self.saved)
         return self.sim.run(self.unit_ms, presim_ms=0)
 
     def warm(self) -> None:
@@ -356,7 +357,8 @@ class Pattern:
         if keep_slot is not None and keep_slot < self.weight_runs:
             # the run's change of the live table, before the next restore
             w_sq = check_mod.change_sq(self.sim.state[1].weights,
-                                       start["weights"], self.keys)
+                                       start["weights"], self.keys,
+                                       self.n_pops)
             self.kept[keep_slot] = (item, start, w_sq.cpu().numpy())
         if res.overflow > self.overflow:
             self.failed += 1
@@ -366,12 +368,8 @@ class Pattern:
     def _start(self) -> dict:
         if self.saved is not None:
             return {**self.saved, "generator_state":
-                    self._sim_state().generator.get_state()}
-        return _state_tensors(self.sim.state)
-
-    def _sim_state(self):
-        st = self.sim.state
-        return st if hasattr(st, "ring") else st[0]
+                    check_mod.sim_state(self.sim.state).generator.get_state()}
+        return _state_tensors(self.network, self.sim.state)
 
     def window(self, seconds: float, sample: Reservoir) -> None:
         """Units back to back until ``seconds`` have passed; a segment
@@ -404,7 +402,7 @@ class Pattern:
         step of each population."""
         steps = sum(len(x) for x in self.counts)
         total = np.sum([x.sum(axis=0) for x in self.counts], axis=0) \
-            if self.counts else np.zeros(8)
+            if self.counts else np.zeros(self.n_pops)
         return {"attempted": len(self.walls),
                 "failed": self.failed, "window_s": self.window_s,
                 "model_s": steps * self.dt * 1e-3,
@@ -416,8 +414,8 @@ class FreeRuns(Pattern):
     """Runs of ``run_ms`` back to back; a segment is a run's first
     steps."""
 
-    def __init__(self, traffic, sim, keys=None):
-        super().__init__(traffic, sim, keys)
+    def __init__(self, traffic, sim, network, keys=None):
+        super().__init__(traffic, sim, network, keys)
         self.unit_ms = float(traffic["run_ms"])
         self.block = 1
 
@@ -426,8 +424,8 @@ class ClosedLoop(Pattern):
     """Chunks of ``chunk_ms``, each asked for once the last one's counts
     are on the host; a segment is a block of consecutive chunks."""
 
-    def __init__(self, traffic, sim, keys=None):
-        super().__init__(traffic, sim, keys)
+    def __init__(self, traffic, sim, network, keys=None):
+        super().__init__(traffic, sim, network, keys)
         self.unit_ms = float(traffic["chunk_ms"])
         self.weight_runs = 0     # the reference follows whole runs only
         per_chunk = int(round(self.unit_ms / self.dt))

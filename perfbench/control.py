@@ -30,7 +30,7 @@ if __name__ == "__main__":
 
 import torch  # noqa: E402
 
-from perfbench import bench, netgen  # noqa: E402
+from perfbench import bench  # noqa: E402
 from perfbench import check as check_mod  # noqa: E402
 
 
@@ -44,40 +44,32 @@ def control_numbers(workload: str, seed: int, *, root: Path = ROOT,
     if overrides:
         config.update(overrides.get("config", {}))
         traffic.update(overrides.get("traffic", {}))
+    network = bench.load_network(config, root)
     dev = torch.device("cuda" if device is None else device)
     seeds = bench._seeds(seed)
-    net = netgen.draw(config["scale"], seeds["net"], dev, dt=config["dt_ms"])
+    net = network.draw(config, seeds["net"], dev)
     sums = check_mod.table_sums(net.targets, net.weights, net.dbins)
-    c = netgen.connectome(net)
+    c = network.connectome(net)
     del net
-    ctl = check_mod.reference_for(c, config, traffic, dev, dtype=dtype)
-    ref = check_mod.reference_for(c, config, traffic, dev)
-    n = c.n_total
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seeds["key"]))
-    v0 = torch.as_tensor(c.v0_mean, device=dev) + torch.as_tensor(
-        c.v0_sd, device=dev) * torch.randn(n, generator=gen, device=dev,
-                                           dtype=torch.float32)
-    zeros = lambda *shape: torch.zeros(shape, dtype=dtype, device=dev)
-    state = {"V": v0.to(dtype), "I_ex": zeros(n), "I_in": zeros(n),
-             "refrac": torch.zeros(n, dtype=torch.int32, device=dev),
-             "ring": zeros(c.d_max_bins, 2, n + 1), "t": 0,
-             "generator_state": gen.get_state()}
-    if ctl.stdp is not None:
-        state.update(weights=ctl.weights0.to(dtype),
-                     x_pre=torch.zeros(n, device=dev),
-                     x_post=torch.zeros(n, device=dev))
-    v0_bad = int((state["V"].float() != v0).sum())
+    plastic = bool(config.get("plasticity"))
+    ctl = network.reference(c, config, traffic, dev, dtype=dtype)
+    ref = network.reference(c, config, traffic, dev)
+    state = network.fresh(c, seeds["key"], dev, dtype, plastic=plastic)
+    as_t = lambda a: torch.as_tensor(a, device=dev)
+    weights = as_t(c.weights).to(dtype)
+    if plastic:
+        state["weights"] = weights
+    v0_bad = check_mod.fresh_mismatch(
+        state, network.fresh(c, seeds["key"], dev, plastic=plastic))
     tables_bad = check_mod._sums_differ(
-        check_mod.table_sums(ctl.targets, ctl.weights0.to(dtype),
-                             ctl.dbins), sums)
+        check_mod.table_sums(as_t(c.targets), weights, as_t(c.dbins)), sums)
     presim = int(round(config["t_presim_ms"] / config["dt_ms"]))
     _, state = ctl.advance(state, presim)
     saved = state if traffic.get("restore") == "after_presim" else None
     steps = int(traffic["check"]["steps"])
     whole = check_mod.run_steps(config, traffic)
     weight_runs = int(traffic["check"].get("weight_runs", 0)) \
-        if ctl.stdp is not None and traffic["pattern"] == "free" else 0
+        if plastic and traffic["pattern"] == "free" else 0
     pairs, wpairs = [], []
     for i in range(int(traffic["check"]["segments"])):
         start = state if saved is None else {
@@ -95,9 +87,9 @@ def control_numbers(workload: str, seed: int, *, root: Path = ROOT,
     numbers = {"v0_mismatch": v0_bad, "tables_mismatch": tables_bad,
                "counts_gap": check_mod.counts_gap(pairs),
                "segments": len(pairs)}
-    if ctl.stdp is not None:
-        numbers["weights_gap"] = check_mod.weights_gap(wpairs) \
-            if wpairs else None
+    if plastic:
+        numbers["weights_gap"] = check_mod.weights_gap(
+            wpairs, len(c.pop_sizes)) if wpairs else None
     correct, compared = check_mod.judge(numbers, files["limits"])
     return {"workload": workload, "seed": seed, "dtype": str(dtype),
             "numbers": numbers, "correct": bool(correct),

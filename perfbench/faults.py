@@ -40,11 +40,12 @@ def step_unchanged(sim, setattr=setattr):
 
 
 def count_altered(sim, setattr=setattr):
-    """The probe's answer altered where it is made: one more spike in L4E
-    at every step."""
+    """The probe's answer altered where it is made: one more spike in the
+    second population (PD14's L4E) at every step."""
     from repro_torch.api.probes import Probe
     orig = sim.probes[0].fn
-    bump = torch.zeros(8, dtype=torch.int32, device=_device(sim))
+    bump = torch.zeros(len(sim.connectome.pop_sizes), dtype=torch.int32,
+                       device=_device(sim))
     bump[1] = 1
     setattr(sim, "probes", (Probe("pop_counts",
                                   lambda ctx: orig(ctx) + bump),))
@@ -80,8 +81,8 @@ def delay_off(sim, setattr=setattr, every: int = 100):
 
 
 def drive_dropped(sim, setattr=setattr, population: int = 5):
-    """One population's Poisson drive dropped (L5I, the smallest): a
-    moderate fault of the drive."""
+    """One population's Poisson drive dropped (PD14's L4I): a moderate
+    fault of the drive."""
     c = sim.connectome
     lo, hi = int(c.pop_offsets[population]), int(c.pop_offsets[population + 1])
     for basis in sim.backend.drive.bases:

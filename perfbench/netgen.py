@@ -51,6 +51,10 @@ class NetDraw:
     def n_total(self) -> int:
         return int(self.pop_sizes.sum())
 
+    @property
+    def n_exc(self) -> int:
+        return int(self.stats["n_exc"])
+
 
 def draw(scale: float, seed: int, device, dt: float = 0.1) -> NetDraw:
     """Draw the network at ``scale`` (neurons and in-degrees both) from
@@ -67,7 +71,8 @@ def draw(scale: float, seed: int, device, dt: float = 0.1) -> NetDraw:
     d_bins = pd14.d_max_bins(dt)
 
     # one row per projection with synapses: its sizes and moments
-    rows = [(t, s) for t in range(8) for s in range(8) if k_proj[t, s]]
+    rows = [(t, s) for t in range(len(n_pop)) for s in range(len(n_pop))
+            if k_proj[t, s]]
     ks = np.array([k_proj[t, s] for t, s in rows], dtype=np.int64)
     exc = np.array([s < pd14.N_EXC_POPS for _, s in rows])
     w_mean = np.where(exc, w_e, syn["g"] * w_e)
@@ -147,15 +152,15 @@ def degree_stats(src, tgt, n_pop, n_exc: int) -> dict:
     """Per population, the mean out- and in-degree of its neurons, and
     the mean of their plastic (E->E) ones: what the rooflines count a
     spike of the population as touching."""
-    n = int(n_pop.sum())
+    n, n_pops = int(n_pop.sum()), len(n_pop)
     pop = torch.repeat_interleave(
-        torch.arange(8, device=src.device),
+        torch.arange(n_pops, device=src.device),
         torch.as_tensor(n_pop, device=src.device))
     plastic = (src < n_exc) & (tgt < n_exc)
 
     def per_pop(ids):
         deg = torch.bincount(ids.to(torch.int64), minlength=n)
-        by = torch.zeros(8, dtype=torch.float64, device=src.device)
+        by = torch.zeros(n_pops, dtype=torch.float64, device=src.device)
         by.index_add_(0, pop, deg.to(torch.float64))
         return (by.cpu().numpy() / n_pop).tolist()
     return {"out": per_pop(src), "in": per_pop(tgt),
@@ -178,7 +183,7 @@ def connectome(net: NetDraw):
     from repro_torch.core.connectivity import Connectome
     n_pop = net.pop_sizes
     offsets = np.concatenate([[0], np.cumsum(n_pop)])
-    pop_of = np.repeat(np.arange(8, dtype=np.int32), n_pop)
+    pop_of = np.repeat(np.arange(len(n_pop), dtype=np.int32), n_pop)
     i_dc = pd14.dc_compensation(net.k_scaling)
     k_ext = pd14.K_EXT.astype(np.float64) * net.k_scaling
     return Connectome(

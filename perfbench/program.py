@@ -4,9 +4,9 @@ counters (``repro_torch.perf.trace``), for the per-layer readers of
 
 The run's own session is gone when the readers run (``bench.run_cell``
 frees it for the check), and it was built before any recording was open.
-So :func:`of` builds a second session like it, on the run's own drawn
-network, configuration, mix, generator seed and device (``run_cell``'s,
-found by the record it made), and takes:
+So :func:`of` builds a second session like it, by the run's own network
+module on its drawn connectome, configuration, mix, generator seed and
+device (``run_cell``'s, found by the record it made), and takes:
 
 1. the build's spans, under ``trace.recording()``: ``build_s``, the
    seconds of each ``session.build*`` span;
@@ -61,7 +61,7 @@ STEP_SPANS = frozenset({"step", "step.drive", "step.deliver", "step.stdp",
 #: speed holds then
 PASS_SECONDS = 5.0
 #: what ``measure`` takes from the run that made the record
-RUN_LOCALS = ("c", "config", "traffic", "seeds", "dev")
+RUN_LOCALS = ("network", "c", "config", "traffic", "seeds", "dev")
 
 
 def of(record: dict) -> Optional[dict]:
@@ -97,7 +97,7 @@ def _measure(record: dict) -> Optional[dict]:
                 f"with its locals {RUN_LOCALS}; the program metrics "
                 "cannot be measured")
         return None
-    out = measure(run["c"], run["config"], run["traffic"],
+    out = measure(run["network"], run["c"], run["config"], run["traffic"],
                   run["seeds"]["key"], run["dev"])
     p = record.get("profile")
     if p and p["steps"]:        # the graphed pass's, beside the census's
@@ -126,17 +126,19 @@ def span_seconds(spans) -> dict:
     return dict(out)
 
 
-def measure(c, config: dict, traffic: dict, key: int, dev) -> dict:
+def measure(network, c, config: dict, traffic: dict, key: int, dev
+            ) -> dict:
     """The build's spans, a pass of the mix under recording and the step
-    census, of a session built like the run's (the module's docstring)."""
+    census, of a session built like the run's (the module's docstring) by
+    ``network``, the run's network module."""
     from perfbench import bench
     from repro_torch.perf import trace
     trace.take()                       # what the traced passes left
     with trace.recording():
-        sim = bench._simulator(config, traffic, c, key, dev)
+        sim = network.simulator(config, traffic, c, key, dev)
         _sync(dev)
     build = span_seconds(trace.take())
-    pattern = bench.Pattern.of(traffic, sim)
+    pattern = bench.Pattern.of(traffic, sim, network)
     sim.warmup(pattern.unit_ms, include_presim=True)
     sim.run(config["t_presim_ms"], presim_ms=0, probes=())
     pattern.after_presim()

@@ -44,6 +44,7 @@ class Reference:
         self.weights0 = as_t(c.weights[:, :k])
         self.dbins = as_t(c.dbins[:, :k])
         self.pop_of = as_t(c.pop_of).to(torch.int64)
+        self.n_pops = len(c.pop_sizes)
         self.d = int(c.d_max_bins)
         rate = pd14.BG_RATE_HZ if rate_hz is None else float(rate_hz)
         self.basis = as_t(np.asarray(c.k_ext, np.float32)
@@ -86,11 +87,13 @@ class Reference:
         keys)."""
         from perfbench import check
         if not hasattr(self, "keys"):
-            self.keys = check.projection_keys(self.targets, self.pop_of)
-        return check.change_sq(w_end, w_start.to(self.device), self.keys)
+            self.keys = check.projection_keys(self.targets, self.pop_of,
+                                              self.n_pops)
+        return check.change_sq(w_end, w_start.to(self.device), self.keys,
+                               self.n_pops)
 
     def follow(self, start: dict, n_steps: int) -> np.ndarray:
-        """Population spike counts ``[n_steps, 8]`` of ``n_steps`` steps
+        """Population spike counts ``[n_steps, n_pops]`` of ``n_steps`` steps
         from ``start``: the program's ``V``, ``I_ex``, ``I_in``,
         ``refrac``, ``ring`` ``[D, 2, N+1]``, step ``t`` and
         ``generator_state``, and with STDP its ``weights`` (the live
@@ -122,7 +125,7 @@ class Reference:
             x_post = start["x_post"].to(self.device, torch.float32).clone()
         flat = ring.view(-1)
         cols = ring.shape[2]
-        counts = torch.zeros((n_steps, 8), dtype=torch.int64,
+        counts = torch.zeros((n_steps, self.n_pops), dtype=torch.int64,
                              device=self.device)
         for j in range(n_steps):
             slot = t % self.d
@@ -150,7 +153,8 @@ class Reference:
                       + (ids >= self.n_exc).to(torch.int64)[:, None]
                       ) * cols + tg
                 flat.index_add_(0, at[real], w[ids][real])
-                counts[j] = torch.bincount(self.pop_of[ids], minlength=8)
+                counts[j] = torch.bincount(self.pop_of[ids],
+                                           minlength=self.n_pops)
             if self.stdp is not None:
                 x_pre, x_post = self._stdp(w, ids, spk, x_pre, x_post,
                                            clip_all=j == 0)

@@ -2,7 +2,9 @@
 ``benchmarks/`` folder (top-level names compared whole: ``repro_torch``
 is the port, ``repro`` the JAX package), and the plain reference imports
 nothing of the port either, through any module of ``perfbench`` it
-reaches.  Imports are read from each module's file."""
+reaches.  Imports are read from each module's file; the network modules
+(``perfbench/networks/``), which the harness loads by path, are walked
+from their own files."""
 import ast
 import sys
 import types
@@ -65,10 +67,11 @@ def reached(path: Path) -> set:
 
 
 def test_files_found():
-    names = {p.name for p in FILES}
+    names = {str(p.relative_to(PB)) for p in FILES}
     assert {"run.py", "bench.py", "netgen.py", "check.py", "trace.py",
-            "roofline.py", "control.py", "lif_net.py", "pd14.py",
-            "rtf.py", "setup_s.py"} <= names
+            "roofline.py", "control.py", "faults.py", "program.py",
+            "reference/lif_net.py", "reference/pd14.py", "networks/pd14.py",
+            "metrics/rtf.py", "metrics/setup_s.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -98,6 +101,9 @@ def test_loaded_jax_is_found_by_whole_name(monkeypatch):
 
 
 def test_the_walk_sees_through_modules(tmp_path):
-    """The walk follows a ``perfbench`` import to its file."""
-    assert "repro_torch.core.connectivity" in reached(PB / "bench.py")
-    assert "repro" not in {n.split(".")[0] for n in reached(PB / "bench.py")}
+    """The walk follows a ``perfbench`` import to its file: PD14's network
+    module reaches the port through ``netgen``, and its reference."""
+    names = reached(PB / "networks" / "pd14.py")
+    assert {"repro_torch.core.connectivity", "perfbench.reference.lif_net",
+            "perfbench.check"} <= names
+    assert "repro" not in {n.split(".")[0] for n in names}

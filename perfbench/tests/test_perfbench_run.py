@@ -106,21 +106,21 @@ def test_weights_gap_is_the_worst_projection():
     targets = torch.tensor([[1, 2, 3], [0, 3, 3], [1, 3, 3]],
                            dtype=torch.int32)          # N = 3, sentinel 3
     pop_of = torch.tensor([0, 0, 1])
-    keys = check.projection_keys(targets, pop_of)
+    keys = check.projection_keys(targets, pop_of, 8)
     assert keys.tolist() == [[0, 1, 8], [0, 8, 8], [9, 17, 17]]
     w0 = torch.zeros(3, 3)
     w1 = torch.tensor([[3.0, 1.0, 5.0], [4.0, 0.0, 0.0], [2.0, 0.0, 0.0]])
-    sq = check.change_sq(w1, w0, keys).numpy()
+    sq = check.change_sq(w1, w0, keys, 8).numpy()
     assert (sq[0], sq[1], sq[8], sq[9]) == (25.0, 1.0, 25.0, 4.0)
     ref = sq.copy()
-    assert check.weights_gap([(sq, ref)]) == 0.0
+    assert check.weights_gap([(sq, ref)], 8) == 0.0
     prog = ref.copy()
     prog[0] = 36.0                     # leaf (0, 0): 6 against 5
-    assert check.weights_gap([(prog, ref)]) == pytest.approx(1 / 5)
+    assert check.weights_gap([(prog, ref)], 8) == pytest.approx(1 / 5)
     prog = ref.copy()
     prog[10] = 4.0                     # a leaf the reference leaves be
     # median moved leaf: of 5, 1 and 2 (the padding's key 8 is no leaf)
-    assert check.weights_gap([(prog, ref)]) == pytest.approx(2 / 2)
+    assert check.weights_gap([(prog, ref)], 8) == pytest.approx(2 / 2)
 
 
 @pytest.mark.parametrize("cell", CELLS)
