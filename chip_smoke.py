@@ -2455,6 +2455,7 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
     import torch
     from repro_torch.analysis import graph_contract as GC
     from repro_torch.kernels import _build
+    from repro_torch.perf import trace
     from repro_torch.perf.step_analysis import kernel_census
     t0 = time.perf_counter()
     out = GC.check_graphed(sim, symbol=label)
@@ -2463,8 +2464,10 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
              + "; ".join(f.format() for f in out["findings"]))
     probes = tuple(sim.probes)
     _build.reset_launches()
+    counted = trace.tally().get("drive.float_counts", 0)
     sim.backend.run(sim.state, CONTRACT_STEPS, probes)
     torch.cuda.synchronize()
+    counted = trace.tally().get("drive.float_counts", 0) - counted
     per_step = {k: _build.launches[k] / CONTRACT_STEPS for k in kernels}
     if any(v != 1.0 for v in per_step.values()):
         fail(f"graph_contract {label}: kernels a step {per_step}, not 1")
@@ -2497,14 +2500,17 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
         float64_tensors=c["f64_tensors"], seconds=time.perf_counter() - t0,
         card=json.dumps(card))
     return {"census": census, "body_ms_per_step": body_ms,
-            "eager_ops": c["ops"]}
+            "eager_ops": c["ops"],
+            "float_counts": f"{counted} of {CONTRACT_STEPS}"}
 
 
 def step_census_line(label: str, contract: dict, ms_step: float,
                      card: str) -> None:
     """``[step_census]``: the profiler's table of one replayed body (each
     kernel's launches and device µs a step), its sum against the body
-    replay's event time a step and the run's graphed ms a step."""
+    replay's event time a step and the run's graphed ms a step, and the
+    steps of a warm run whose drive reached the kernel as drawn float
+    counts (``drive.float_counts``)."""
     census = contract["census"]
     say("step_census", path=label, kernels=json.dumps({
         k: {"launches_per_step": round(v["launches_per_step"], 3),
@@ -2517,7 +2523,7 @@ def step_census_line(label: str, contract: dict, ms_step: float,
         busy_share_of_body=census["us_per_step"] / 1e3
         / contract["body_ms_per_step"],
         eager_aten_ops_per_step=json.dumps(contract["eager_ops"]),
-        card=json.dumps(card))
+        drive_float_counts=contract["float_counts"], card=json.dumps(card))
 
 
 #: the step of the next run into whose ring slot ``[sanitize]`` puts a NaN
@@ -2774,7 +2780,11 @@ def main() -> None:
                 on((rng.uniform(0, 1, N) * 400).astype(np.float32)),
                 on((-rng.uniform(0, 1, N) * 400).astype(np.float32)),
                 on(rng.integers(0, 21, N).astype(np.int32)))
-    ext_ex = on((rng.poisson(10.0, N) * c.w_ext).astype(np.float32))
+    # the drive as the step hands it to K3 and K4: float32 spike counts,
+    # weighted by w_ext inside; the running overflow the kernels add to
+    ext_cnt = on(rng.poisson(10.0, N).astype(np.float32))
+    ovf0 = torch.zeros((), dtype=torch.int32, device=dev)
+    k3_kw = dict(n_exc=c.n_exc, prop=prop, w_ext=c.w_ext)
     i_dc = torch.as_tensor(c.i_dc, device=dev)
     tbl = (tables.targets, tables.weights, tables.dbins)
     max_err = {name: 0.0 for name in _build.KERNELS}
@@ -2822,15 +2832,14 @@ def main() -> None:
         max_err["ell_deliver"] = max(max_err["ell_deliver"], err)
         del r_k, r_p
 
-        out_k = K3.lif_deliver(ring.clone(), *tbl, spk, *state_in, ext_ex,
-                               i_dc, t_dev, n_exc=c.n_exc, budget=bud,
-                               prop=prop)
+        out_k = K3.lif_deliver(ring.clone(), *tbl, spk, *state_in, ext_cnt,
+                               i_dc, t_dev, ovf0, budget=bud, **k3_kw)
         out_p = K3.lif_deliver_plain(ring.clone(), *tbl, spk, *state_in,
-                                     ext_ex, i_dc, t_dev, n_exc=c.n_exc,
-                                     budget=bud, prop=prop)
+                                     ext_cnt, i_dc, t_dev, ovf0, budget=bud,
+                                     **k3_kw)
         torch.cuda.synchronize()
         names = ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
-                 "overflow")
+                 "overflow", "t")
         errs = {}
         for name, a, b in zip(names, out_k, out_p):
             if name in ("ring", "I_ex", "I_in"):
@@ -2857,9 +2866,9 @@ def main() -> None:
     ws = K3.workspace(dev, grid)
     ws0 = int(ws[0])
     ring = ring0()
-    got = [K3.lif_deliver(ring, *tbl, pool[i % len(pool)], *state_in, ext_ex,
-                          i_dc, t_seq[i], n_exc=c.n_exc, budget=budget,
-                          prop=prop)[6:] for i in range(2000)]
+    got = [K3.lif_deliver(ring, *tbl, pool[i % len(pool)], *state_in,
+                          ext_cnt, i_dc, t_seq[i], ovf0, budget=budget,
+                          **k3_kw)[6:8] for i in range(2000)]
     torch.cuda.synchronize()
     for i, (ids_k, ovf_k) in enumerate(got):
         ids_p, ovf_p = want_ids[i % len(pool)]
@@ -2883,9 +2892,9 @@ def main() -> None:
         spk = pool[(i // 2) % len(pool)]
         got.append(K2.ell_deliver(ring, *tbl, spk, t_seq[i], c.n_exc,
                                   budget)[1:] if i % 2 else
-                   K3.lif_deliver(ring, *tbl, spk, *state_in, ext_ex, i_dc,
-                                  t_seq[i], n_exc=c.n_exc, budget=budget,
-                                  prop=prop)[6:])
+                   K3.lif_deliver(ring, *tbl, spk, *state_in, ext_cnt, i_dc,
+                                  t_seq[i], ovf0, budget=budget,
+                                  **k3_kw)[6:8])
     torch.cuda.synchronize()
     for i, (ids_k, ovf_k) in enumerate(got):
         ids_p, ovf_p = want_ids[(i // 2) % len(pool)]
@@ -2953,8 +2962,8 @@ def main() -> None:
         ring = ring0()
         x_pre, x_post = traces(), traces()
         w_k, w_p = w_base.clone(), w_base.clone()
-        k4_in = (spk, *state_in, ext_ex, i_dc, x_pre, x_post, t_dev)
-        k4_kw = dict(n_exc=c.n_exc, budget=bud, prop=prop, coef=coef)
+        k4_in = (spk, *state_in, ext_cnt, i_dc, x_pre, x_post, t_dev, ovf0)
+        k4_kw = dict(budget=bud, coef=coef, **k3_kw)
         out_k = K3.lif_deliver_plastic(ring.clone(), tables.targets, w_k,
                                        tables.dbins, pmask, *k4_in, **k4_kw)
         out_p = K3.lif_deliver_plastic_plain(
@@ -2962,7 +2971,7 @@ def main() -> None:
             **k4_kw)
         torch.cuda.synchronize()
         names = ("ring", "weights", "V", "I_ex", "I_in", "refrac", "spiked",
-                 "x_pre", "x_post", "ids", "overflow")
+                 "x_pre", "x_post", "ids", "overflow", "t")
         errs = {}
         for name, a, b in zip(names, out_k, out_p):
             if name in ("ring", "I_ex", "I_in"):
@@ -3278,13 +3287,11 @@ def main() -> None:
     k3_bytes = (N * (6 * 4 + 4 * 4 + 1) + N          # state, drive, spikes
                 + 2 * 2 * (N + 1) * 4                # slot read + zeroed
                 + 4 * budget_main + 4 + n_entries * (12 + 8))
-    k3_state = (*state_in, ext_ex, i_dc, t_dev)
+    k3_state = (*state_in, ext_cnt, i_dc, t_dev, ovf0)
     k3 = timed(lambda i: K3.lif_deliver(
-        ring, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
-        prop=prop))
+        ring, *tbl, spk_of(i), *k3_state, budget=budget_main, **k3_kw))
     k3_plain = timed(lambda i: K3.lif_deliver_plain(
-        ring, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
-        prop=prop))
+        ring, *tbl, spk_of(i), *k3_state, budget=budget_main, **k3_kw))
     say("timing", spikes=spikes_per_step, real_entries=n_entries,
         K1=json.dumps(k1), K2=json.dumps(k2), K3=json.dumps(k3),
         K2_index_add=json.dumps(k2_lib))
@@ -3317,8 +3324,7 @@ def main() -> None:
 
     def k3_on(r):
         return lambda i, **kw: K3.lif_deliver(
-            r, *tbl, spk_of(i), *k3_state, n_exc=c.n_exc, budget=budget_main,
-            prop=prop, **kw)
+            r, *tbl, spk_of(i), *k3_state, budget=budget_main, **k3_kw, **kw)
 
     def stamps_of(launch, buffer=lambda: K3.stamps_buffer(dev, N + 1),
                   names=K3.PHASES):
@@ -3348,7 +3354,7 @@ def main() -> None:
     k3["graph_ms"] = graph_replay(
         k3_on(ring_g), k3_on(ring_e), same_outputs(
             "K3", ("ring", "V", "I_ex", "I_in", "refrac", "spiked", "ids",
-                   "overflow"), ("ring", "I_ex", "I_in")))
+                   "overflow", "t"), ("ring", "I_ex", "I_in")))
     del ring_g, ring_e
     say("K3_graph", launches_captured=64, replay_equal_to_eager=True,
         graph_ms=k3["graph_ms"], ms=k3["ms"], call_ms=k3["call_ms"])
@@ -3377,9 +3383,8 @@ def main() -> None:
     x_pre_t, x_post_t = traces(), traces()
     spks_pl = [spiked_with(spikes_pl) for _ in range(64)]
     ids_pl = [compact_ids_plain(x, budget_main)[0] for x in spks_pl]
-    k4_state = (*state_in, ext_ex, i_dc, x_pre_t, x_post_t, t_dev)
-    k4_kw = dict(n_exc=c.n_exc, budget=budget_main, prop=prop,
-                 coef=rule.coef)
+    k4_state = (*state_in, ext_cnt, i_dc, x_pre_t, x_post_t, t_dev, ovf0)
+    k4_kw = dict(budget=budget_main, coef=rule.coef, **k3_kw)
     k4 = timed(lambda i: K3.lif_deliver_plastic(
         ring, tables.targets, w_t, tables.dbins, pmask, spks_pl[i % 64],
         *k4_state, **k4_kw))
@@ -3400,7 +3405,7 @@ def main() -> None:
     k4["graph_ms"] = graph_replay(
         k4_on(ring_g, w_g), k4_on(ring_e, w_e), same_outputs(
             "K4", ("ring", "weights", "V", "I_ex", "I_in", "refrac",
-                   "spiked", "x_pre", "x_post", "ids", "overflow"),
+                   "spiked", "x_pre", "x_post", "ids", "overflow", "t"),
             ("ring", "I_ex", "I_in")))
     del ring_g, ring_e, w_g, w_e
     say("K4_graph", launches_captured=64, replay_equal_to_eager=True,

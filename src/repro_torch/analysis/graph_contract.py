@@ -38,14 +38,14 @@ from repro_torch.analysis.report import Finding
 from repro_torch.perf.step_analysis import op_census
 
 #: casts a step may dispatch: today's largest count over the committed
-#: scenarios, 23 (``stdp_ee.json`` on the one-kernel step, on the CPU,
-#: where the plain versions run op by op).  The static main path's step
-#: (``ell``, ``pop_counts``, the 8 Hz background) dispatches 9 there, in 85
-#: ops, and 2 on the card, in 15 ops around K3 and the probe's kernel (the
-#: drive's two casts; ``chip_smoke.py``'s ``[graph_contract]``, PERF.md;
-#: 20 ops while the probe was six ops on the card).  The small-op work
-#: (ROADMAP §2, item 1) lowers these counts, and this budget with them.
-DEFAULT_MAX_CASTS = 23
+#: scenarios, 22 (``stdp_ee.json`` on the phase-split step, on the CPU,
+#: where the plain versions run op by op; 21 on the one-kernel step).  The
+#: static main path's step (``ell``, ``pop_counts``, the 8 Hz background)
+#: dispatches 7 on the one-kernel step there, in 87 ops, and none on the
+#: card, in 11 ops around the draw, K3 and the probe's kernel: K3 takes
+#: the drive's float counts as drawn (``chip_smoke.py``'s
+#: ``[graph_contract]``, PERF.md).
+DEFAULT_MAX_CASTS = 22
 
 
 def _clone_state(state):

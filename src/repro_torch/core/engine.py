@@ -14,10 +14,12 @@ Differences from the reference, all deliberate:
 
 As in the reference, the step counter ``t`` is a 0-d int32 tensor on the
 session's device, like the overflow counter: the kernels read it there, the
-stimulus gates are tensor functions of it, and each step advances it with
-an op of its own.  Nothing on a step's path reads a device value back to
-the host, so a run of steps can be captured in a CUDA graph
-(``repro_torch.api.backends``).
+stimulus gates are tensor functions of it, and each step advances it, the
+split step with an op of its own, the fused step inside K3 or K4 (which
+also take the drive's float counts and form ``w_ext`` times them, so the
+fused step launches no cast, product or counter op around its kernel).
+Nothing on a step's path reads a device value back to the host, so a run
+of steps can be captured in a CUDA graph (``repro_torch.api.backends``).
 
 The reference's functional entry points are here too, deprecated as they
 are there: ``make_step`` (the split update + deliver step), ``simulate``
@@ -41,7 +43,7 @@ from repro_torch.core.device import session_device
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels.lif_deliver import slot_index
-from repro_torch.perf.trace import span
+from repro_torch.perf.trace import count, span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -192,13 +194,13 @@ def fused_update_phase(state: SimState, net: Network, prop: Propagators,
     the loop.  Returns ``(state, spiked)`` with ``t`` advanced by one."""
     from repro_torch.kernels import ops as kops
     with span("step.drive"):
-        ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
+        ext_cnt, i_dc = _fused_drive(state, net, n, drive)
     with span("step.deliver"):
-        neuron, ring, spiked, ovf = kops.lif_deliver(
+        neuron, ring, spiked, t, overflow = kops.lif_deliver(
             state.neuron, state.ring, state.t, spiked_prev, net.tables,
-            prop, ext_ex, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget)
-    return SimState(neuron, ring, state.t + 1, state.generator,
-                    state.overflow + ovf), spiked
+            prop, ext_cnt, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget,
+            w_ext=w_ext, overflow=state.overflow)
+    return SimState(neuron, ring, t, state.generator, overflow), spiked
 
 
 def fused_plastic_update_phase(state: SimState, ps, net: Network,
@@ -215,24 +217,28 @@ def fused_plastic_update_phase(state: SimState, ps, net: Network,
     ``(state, ps', spiked, ids)``; ``ps'`` holds the new traces."""
     from repro_torch.kernels import ops as kops
     with span("step.drive"):
-        ext_ex, i_dc = _fused_drive(state, net, w_ext, n, drive)
+        ext_cnt, i_dc = _fused_drive(state, net, n, drive)
     with span("step.deliver"):
-        neuron, ring, spiked, ps, ids, ovf = kops.lif_deliver_plastic(
+        neuron, ring, spiked, ps, ids, t, overflow = kops.lif_deliver_plastic(
             state.neuron, state.ring, state.t, spiked_prev, net.tables,
-            bound.tables.plastic_out, ps, prop, ext_ex, i_dc, n_exc=n_exc,
-            spike_budget=cfg.spike_budget, coef=bound.coef, trace=trace)
-    return (SimState(neuron, ring, state.t + 1, state.generator,
-                     state.overflow + ovf), ps, spiked, ids)
+            bound.tables.plastic_out, ps, prop, ext_cnt, i_dc, n_exc=n_exc,
+            spike_budget=cfg.spike_budget, w_ext=w_ext,
+            overflow=state.overflow, coef=bound.coef, trace=trace)
+    return (SimState(neuron, ring, t, state.generator, overflow), ps, spiked,
+            ids)
 
 
-def _fused_drive(state: SimState, net: Network, w_ext: float, n: int,
-                 drive: stim.Drive):
-    """The external drive as the fused kernels take it: two [N] tensors."""
-    dtype = state.ring.dtype
-    ext_ex, i_dc = _external_drive(state, net, w_ext, dtype, drive)
-    if ext_ex is None:
-        ext_ex = torch.zeros(n, dtype=dtype, device=state.ring.device)
-    return ext_ex, i_dc.expand(n).to(dtype)
+def _fused_drive(state: SimState, net: Network, n: int, drive: stim.Drive):
+    """The external drive as K3 and K4 take it: the float32 spike counts
+    as drawn (None when no stimulus feeds spikes), which the kernel weights
+    by ``w_ext``, and the [N] DC term.  A separable drive's counts are the
+    draws themselves, with no cast: such a step counts as
+    ``drive.float_counts``."""
+    I_ext, ext_cnt = drive.counts(state.generator, state.t, state)
+    i_dc = net.i_dc if I_ext is None else net.i_dc + I_ext
+    if drive.separable:
+        count("drive.float_counts")
+    return ext_cnt, i_dc.expand(n).to(state.ring.dtype)
 
 
 def deliver_phase(state: SimState, net: Network, cfg: SimConfig,

@@ -106,26 +106,36 @@ class Drive:
         sums per channel.
 
         Returns ``(I_ext, ext_in)`` with ``None`` for a channel no stimulus
-        feeds.  ``ext_in`` is an int32 spike count, as in the reference
-        (``torch.poisson`` draws floats; the cast is exact).
+        feeds.  ``ext_in`` is an int32 spike count, as in the reference:
+        :meth:`counts`'s float32 counts, cast once (the cast is exact).
         """
-        I_ext, ext_in = None, None
+        I_ext, ext_cnt = self.counts(generator, t_step, state)
+        return I_ext, None if ext_cnt is None else ext_cnt.to(torch.int32)
+
+    def counts(self, generator: Optional[torch.Generator], t_step, state):
+        """:meth:`__call__` with the spike counts in float32, as the fused
+        kernels take them: ``torch.poisson``'s draws as they come, an
+        ``fn`` stimulus's counts cast once.  The draws are whole numbers
+        and their sums stay below 2**24, so these are exactly the int32
+        counts' values, from the same draws of ``generator``."""
+        I_ext, ext_cnt = None, None
         for s, basis in zip(self.compiled, self.bases):
             gen = generator if s.stochastic else None
             if s.fn is not None:
                 i_c, e_c = s.fn(gen, t_step, state)
+                if e_c is not None:
+                    e_c = e_c.to(torch.float32)
             else:
                 val = basis if s.gate is None else basis * s.gate(t_step)
                 if s.channel == "spikes":
-                    i_c = None
-                    e_c = torch.poisson(val, generator=gen).to(torch.int32)
+                    i_c, e_c = None, torch.poisson(val, generator=gen)
                 else:
                     i_c, e_c = val, None
             if i_c is not None:
                 I_ext = i_c if I_ext is None else I_ext + i_c
             if e_c is not None:
-                ext_in = e_c if ext_in is None else ext_in + e_c
-        return I_ext, ext_in
+                ext_cnt = e_c if ext_cnt is None else ext_cnt + e_c
+        return I_ext, ext_cnt
 
     @property
     def separable(self) -> bool:

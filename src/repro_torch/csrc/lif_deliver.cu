@@ -21,9 +21,14 @@
 // rank's n_tgt neurons (repro_torch/core/distributed.py).
 // The step counter t is read from device memory, the session's 0-d int32
 // counter: K3 and K4 take t_prev = *t - 1, K2 t_prev = *t.  No form writes
-// the counter; the engine advances it with a separate op after the launch,
-// so no block can read a value another block has already advanced, and a
-// launch captured in a CUDA graph reads the counter its replay finds.
+// the counter it reads: K3 and K4 write t + 1 into a fresh 0-d output
+// (t_next), and the running overflow plus this launch's excess into
+// another, so no block can read a value another block has already
+// advanced, and a launch captured in a CUDA graph reads the counter its
+// replay finds.  K2 writes the excess alone, and the split loop adds it.
+// K3 and K4 also take the step's external drive as it is drawn: the float
+// spike counts (or none) and the weight w_ext, whose product each neuron
+// forms as one rounded multiply, as PyTorch's scalar product does.
 //
 // On the TPU the grid runs in order on one core, so the LIF update can
 // simply be the last grid row, and K2's scatter goes to a ring update held
@@ -123,6 +128,7 @@ struct StepConst {                    // the same for every step of a session
   int k_pad, n, n_tgt, n_exc, d_bins, budget, grid;
   LifProp p;
   float dep_coef, decay_p, decay_m;   // K4's pair-STDP immediates
+  float w_ext;                        // K3/K4: the external spikes' weight
 };
 
 struct StepIO {                       // this step's tensors
@@ -132,7 +138,8 @@ struct StepIO {                       // this step's tensors
   const float* I_ex;
   const float* I_in;
   const int* refrac;
-  const float* ext_ex;                // [N] external input, pre-scaled
+  const float* ext_cnt;               // [N] external spike counts, or
+                                      // null: no stimulus feeds spikes
   const float* i_dc;                  // [N]
   float* Vo;
   float* Iexo;
@@ -150,6 +157,8 @@ struct StepIO {                       // this step's tensors
   int t_shift;                        // t_prev = *t + t_shift: K3/K4 -1, K2 0
   int trace;   // K4: 0 in the rotated loop's first step: no spikes were
                // delivered, and the traces must not decay an extra step
+  const int* overflow_in;             // K3/K4: [1] the running overflow
+  int* t_next;                        // K3/K4: [1] *t + 1
 };
 
 struct StepArgs {
@@ -158,7 +167,8 @@ struct StepArgs {
 };
 
 // One neuron's inputs to the LIF pass, other than its ring slot, loaded
-// together before any of its outputs is stored.
+// together before any of its outputs is stored; ext_ex is w_ext times its
+// external spike count (read only when there are counts).
 struct Neuron {
   float V, I_ex, I_in, ext_ex, i_dc, x_pre, x_post;
   int refrac;
@@ -166,12 +176,13 @@ struct Neuron {
 };
 
 template <bool kPlastic>
-__device__ __forceinline__ Neuron load_neuron(const StepIO& io, int i) {
+__device__ __forceinline__ Neuron load_neuron(const StepConst& k,
+                                              const StepIO& io, int i) {
   Neuron x;
   x.V = io.V[i];
   x.I_ex = io.I_ex[i];
   x.I_in = io.I_in[i];
-  x.ext_ex = io.ext_ex[i];
+  x.ext_ex = io.ext_cnt ? __fmul_rn(k.w_ext, io.ext_cnt[i]) : 0.0f;
   x.i_dc = io.i_dc[i];
   x.refrac = io.refrac[i];
   if (kPlastic && io.trace) {
@@ -315,7 +326,11 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   const int total = static_cast<int>(ld_relaxed(words + G - 1) & 0xffffffffu);
   const int n_real = min(total, k.budget);
   for (int p = total + g; p < k.budget; p += threads) io.ids[p] = n;
-  if (g == 0) *io.overflow = max(total - k.budget, 0);
+  if (g == 0) {
+    const int excess = max(total - k.budget, 0);
+    *io.overflow = io.overflow_in ? *io.overflow_in + excess : excess;
+    if (io.t_next) *io.t_next = *io.t + 1;
+  }
   const int n_entries = n_real * k.k_pad;   // < 2^30 (the wrapper checks)
   for (int e0 = g; e0 < n_entries; e0 += kUnroll * threads) {
     int tg[kUnroll], bin[kUnroll], ch[kUnroll];
@@ -368,10 +383,11 @@ __global__ void __launch_bounds__(kBlock, 1) lif_deliver_kernel(StepArgs a) {
   float* row_in = row_ex + n_cols;
   for (int i = g; i < n_cols; i += threads) {
     if (i < n) {
-      const Neuron x = load_neuron<kPlastic>(io, i);
-      lif_neuron(k.p, x.V, x.I_ex, x.I_in, x.refrac,
-                 __fadd_rn(row_ex[i], x.ext_ex), row_in[i], x.i_dc,
-                 io.Vo + i, io.Iexo + i, io.Iino + i, io.refo + i,
+      const Neuron x = load_neuron<kPlastic>(k, io, i);
+      const float in_ex =
+          io.ext_cnt ? __fadd_rn(row_ex[i], x.ext_ex) : row_ex[i];
+      lif_neuron(k.p, x.V, x.I_ex, x.I_in, x.refrac, in_ex, row_in[i],
+                 x.i_dc, io.Vo + i, io.Iexo + i, io.Iino + i, io.refo + i,
                  io.spk + i);
       if (kPlastic && io.trace) {
         io.x_pre_o[i] = stdp_trace(x.x_pre, k.decay_p, x.spiked_prev);
@@ -435,15 +451,15 @@ EXPORT int lif_deliver_stamps() { return kStamps; }
 #define STEP_IO_PARAMS                                                      \
   const unsigned char *spiked_prev, float *ring, const float *V,            \
       const float *I_ex, const float *I_in, const int *refrac,              \
-      const float *ext_ex, const float *i_dc, float *Vo, float *Iexo,       \
+      const float *ext_cnt, const float *i_dc, float *Vo, float *Iexo,      \
       float *Iino, int *refo, unsigned char *spk, int *ids, int *overflow,  \
-      const int *t
+      const int *t, const int *overflow_in, int *t_next
 
 #define STEP_IO                                                             \
-  StepIO io{spiked_prev, ring, V,    I_ex,    I_in,     refrac,  ext_ex,    \
+  StepIO io{spiked_prev, ring, V,    I_ex,    I_in,     refrac,  ext_cnt,   \
             i_dc,        Vo,   Iexo, Iino,    refo,     spk,     ids,       \
             overflow,    nullptr, nullptr, nullptr, nullptr, nullptr,       \
-            t,           -1,   0}
+            t,           -1,   0,    overflow_in, t_next}
 
 #define PLASTIC_PARAMS                                                      \
   const float *x_pre, const float *x_post, float *x_pre_o, float *x_post_o, \
@@ -457,7 +473,9 @@ EXPORT int lif_deliver_stamps() { return kStamps; }
   io.trace = trace
 
 // K3.  `k` is the session's constant pack (tables, sizes, propagators,
-// grid, workspace), built once by the wrapper.
+// grid, workspace, w_ext), built once by the wrapper; ext_cnt may be null
+// (no spike drive); overflow_in is the running overflow, and the launch
+// writes the new one into `overflow` and t + 1 into t_next.
 EXPORT int lif_deliver_launch(const StepConst* k, STEP_IO_PARAMS,
                               void* stream) {
   STEP_IO;
@@ -501,7 +519,8 @@ EXPORT int lif_deliver_plastic_stamped_launch(const StepConst* k,
 #define DELIVER_IO                                                          \
   StepIO io{spiked,  ring,    nullptr, nullptr, nullptr, nullptr, nullptr,  \
             nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, ids,      \
-            overflow, nullptr, nullptr, nullptr, nullptr, nullptr, t, 0, 0}
+            overflow, nullptr, nullptr, nullptr, nullptr, nullptr, t, 0, 0,  \
+            nullptr,  nullptr}
 
 EXPORT int ell_deliver_launch(const StepConst* k,
                               const unsigned char* spiked, float* ring,

@@ -10,10 +10,19 @@ which it then zeroes.  The plain version is exactly ``deliver_phase(t -
 the split loop on the CPU.
 
 ``t`` is the session's step counter, a 0-d int32 tensor on the ring's
-device.  The kernels read it from device memory and never write it (the
-engine advances it with an op of its own), so a launch captured in a CUDA
-graph reads the counter of its replay; the plain versions compute the
-slot by index arithmetic on the tensor, with no read back to the host.
+device.  The kernels read it from device memory and never write it: K3
+and K4 return ``t + 1`` and the running overflow plus the step's budget
+excess as fresh 0-d tensors, which they write themselves, so a launch
+captured in a CUDA graph reads the counter of its replay and the step
+launches no op for its counters; the plain versions compute the slot by
+index arithmetic on the tensor, with no read back to the host.
+
+The external drive comes as the step draws it: ``ext_cnt``, the float32
+spike counts (``Drive.counts``; None when no stimulus feeds spikes), and
+the weight ``w_ext``.  Each neuron's input is ``row_ex + w_ext * ext_cnt``,
+the product rounded once in float32 as PyTorch's product of a Python
+float and a float32 tensor is, so the plain versions (which form it so)
+are the split loop's ``update_phase`` bit for bit.
 
 K4 replaces ``lif_deliver_plastic_pallas``: K3 on the live plastic table,
 plus the pair-STDP depression of the delivered rows' plastic entries,
@@ -140,44 +149,54 @@ def check_ring(what, ring, n: int, n_tgt: int) -> None:
 
 
 def lif_deliver_plain(ring, targets, weights, dbins, spiked_prev, V, I_ex,
-                      I_in, refrac, ext_ex, i_dc, t, *, n_exc: int,
-                      budget: int, prop: Propagators):
-    """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``.
+                      I_in, refrac, ext_cnt, i_dc, t, overflow, *,
+                      n_exc: int, budget: int, prop: Propagators,
+                      w_ext: float):
+    """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow',
+    t')``.
 
-    ``ring`` [D, 2, N+1] is updated in place; ``overflow`` is the budget
-    excess of ``spiked_prev`` (the delivered step, ``t - 1``).
+    ``ring`` [D, 2, N+1] is updated in place; ``ext_cnt`` is the step's
+    float32 external spike counts (None: no spike drive), weighted by
+    ``w_ext``; ``overflow'`` is ``overflow`` plus the budget excess of
+    ``spiked_prev`` (the delivered step, ``t - 1``), ``t'`` is ``t + 1``.
     """
     n = V.shape[0]
     t = step_counter(t, ring.device)
-    ring, ids, overflow = ell_deliver_plain(
+    ring, ids, excess = ell_deliver_plain(
         ring, targets, weights, dbins, spiked_prev, t - 1, n_exc, budget)
     slot = slot_index(t, ring.shape[0])
     arrivals = ring.index_select(0, slot)[0]
-    in_ex = arrivals[0, :n] + ext_ex
+    in_ex = arrivals[0, :n]
+    if ext_cnt is not None:
+        in_ex = in_ex + w_ext * ext_cnt
     V, I_ex, I_in, refrac, spiked = lif_update_plain(
         V, I_ex, I_in, refrac, in_ex, arrivals[1, :n], i_dc, prop=prop)
     ring.index_fill_(0, slot, 0.0)        # consume the slot
-    return ring, V, I_ex, I_in, refrac, spiked, ids, overflow
+    return (ring, V, I_ex, I_in, refrac, spiked, ids,
+            step_counter(overflow, ring.device) + excess, t + 1)
 
 
 def lif_deliver_plastic_plain(ring, targets, weights, dbins, pmask,
-                              spiked_prev, V, I_ex, I_in, refrac, ext_ex,
-                              i_dc, x_pre, x_post, t, *,
+                              spiked_prev, V, I_ex, I_in, refrac, ext_cnt,
+                              i_dc, x_pre, x_post, t, overflow, *,
                               n_exc: int, budget: int, prop: Propagators,
-                              coef: StdpCoef, trace: bool = True):
+                              w_ext: float, coef: StdpCoef,
+                              trace: bool = True):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
-    x_pre', x_post', ids, overflow)``; ``ring`` and ``weights`` (the live
-    table, ``pmask`` its plastic entries) are updated in place."""
-    (ring, V, I_ex, I_in, refrac, spiked, ids,
-     overflow) = lif_deliver_plain(
+    x_pre', x_post', ids, overflow', t')``; ``ring`` and ``weights`` (the
+    live table, ``pmask`` its plastic entries) are updated in place; the
+    drive and the counters as for :func:`lif_deliver_plain`."""
+    (ring, V, I_ex, I_in, refrac, spiked, ids, overflow,
+     t) = lif_deliver_plain(
         ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in, refrac,
-        ext_ex, i_dc, t, n_exc=n_exc, budget=budget, prop=prop)
+        ext_cnt, i_dc, t, overflow, n_exc=n_exc, budget=budget, prop=prop,
+        w_ext=w_ext)
     depress_plain(weights, targets, pmask, x_post, ids, coef.dep)
     if trace:
         x_pre, x_post = traces_plain(x_pre, x_post, spiked_prev,
                                      coef.decay_p, coef.decay_m)
     return (ring, weights, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids,
-            overflow)
+            overflow, t)
 
 
 class StepConst(ctypes.Structure):
@@ -189,19 +208,23 @@ class StepConst(ctypes.Structure):
                 ("grid", _I), ("P11_ex", _F), ("P11_in", _F), ("P22", _F),
                 ("P21_ex", _F), ("P21_in", _F), ("P20", _F), ("V_th", _F),
                 ("V_reset", _F), ("E_L", _F), ("ref_steps", _I),
-                ("dep_coef", _F), ("decay_p", _F), ("decay_m", _F)]
+                ("dep_coef", _F), ("decay_p", _F), ("decay_m", _F),
+                ("w_ext", _F)]
 
 
-def step_const(ptrs: tuple, sizes: tuple, prop, coef) -> StepConst:
+def step_const(ptrs: tuple, sizes: tuple, prop, coef,
+               w_ext: float = 0.0) -> StepConst:
     """The pack of ``ptrs`` (targets, weights, dbins, pmask, workspace:
     device addresses, 0 for none), ``sizes`` (k_pad, n, n_tgt, n_exc,
-    d_bins, budget, grid), the propagators (None for K2: zeros) and, for K4, the
-    STDP coefficients."""
+    d_bins, budget, grid), the propagators (None for K2: zeros), for K4
+    the STDP coefficients, and for K3 and K4 the external spikes' weight
+    ``w_ext`` (rounded to float32, as PyTorch rounds a Python float that
+    multiplies a float32 tensor)."""
     lif = (prop.P11_ex, prop.P11_in, prop.P22, prop.P21_ex, prop.P21_in,
            prop.P20, prop.V_th, prop.V_reset, prop.E_L, prop.ref_steps) \
         if prop else (0,) * 10
     plastic = (coef.dep, coef.decay_p, coef.decay_m) if coef else (0, 0, 0)
-    return StepConst(*ptrs, *sizes, *lif, *plastic)
+    return StepConst(*ptrs, *sizes, *lif, *plastic, w_ext)
 
 
 #: ``step_const`` cached by its inputs, all plain values, so that a hit is
@@ -211,19 +234,22 @@ _cached_step_const = functools.lru_cache(maxsize=32)(step_const)
 
 def session_pack(targets, weights, dbins, pmask, ws, *, n: int, n_exc: int,
                  d_bins: int, budget: int, grid: int, prop, coef,
-                 n_tgt: Optional[int] = None) -> StepConst:
+                 n_tgt: Optional[int] = None,
+                 w_ext: float = 0.0) -> StepConst:
     """The cached pack of a session's tables (``pmask`` and ``coef`` None
-    for K3 and K2, ``prop`` None for K2), workspace and sizes, as a launch
-    takes it.  ``n`` is the spike vector's length, ``n_tgt`` the ring's
-    target count (``n`` when None; K2's local-ring form gives its own)."""
+    for K3 and K2, ``prop`` None and ``w_ext`` 0 for K2), workspace and
+    sizes, as a launch takes it.  ``n`` is the spike vector's length,
+    ``n_tgt`` the ring's target count (``n`` when None; K2's local-ring
+    form gives its own)."""
     return _cached_step_const(
         (targets.data_ptr(), weights.data_ptr(), dbins.data_ptr(),
          0 if pmask is None else pmask.data_ptr(), ws.data_ptr()),
         (targets.shape[1], n, n if n_tgt is None else int(n_tgt), n_exc,
-         d_bins, budget, grid), prop, coef)
+         d_bins, budget, grid), prop, coef, float(w_ext))
 
 
-_IO_ARGTYPES = [_P] + [_P] * 15 + [_P]          # pack, tensors, t
+# pack, tensors, t, the running overflow, t's output
+_IO_ARGTYPES = [_P] + [_P] * 15 + [_P] * 3
 _PLASTIC_ARGTYPES = [_P] * 4 + [_I]             # traces in and out, trace
 _DELIVER_ARGTYPES = [_P] * 5 + [_P]             # pack, K2's tensors, t
 
@@ -330,7 +356,7 @@ def _check_counter(what, t, ring):
 
 
 def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
-          budget, prop, coef, t, n_tgt=None):
+          budget, prop, coef, t, n_tgt=None, w_ext=0.0):
     """Checks the delivery's inputs; returns the session's cached pack.
     The grid is sized by the spike vector (``n + 1`` columns), which the
     compaction covers; ``n_tgt`` (default ``n``) is the ring's target
@@ -347,51 +373,74 @@ def _pack(what, ring, targets, weights, dbins, pmask, spiked, n_exc,
     grid = cooperative_grid(dev, n + 1)
     return session_pack(targets, weights, dbins, pmask, workspace(dev, grid),
                         n=n, n_tgt=n_tgt, n_exc=n_exc, d_bins=ring.shape[0],
-                        budget=budget, grid=grid, prop=prop, coef=coef)
+                        budget=budget, grid=grid, prop=prop, coef=coef,
+                        w_ext=w_ext)
+
+
+def _check_drive(what, ext_cnt, overflow, ring, n):
+    """The step's float32 counts (or None) and the running overflow, a 0-d
+    int32 tensor, where the kernel reads them."""
+    if ext_cnt is not None and not (
+            ext_cnt.dtype == torch.float32 and ext_cnt.shape == (n,)
+            and ext_cnt.device == ring.device and ext_cnt.is_contiguous()):
+        raise TypeError(f"{what}: ext_cnt must be the step's [{n}] float32 "
+                        f"spike counts on {ring.device}, contiguous, or "
+                        f"None")
+    if not (isinstance(overflow, torch.Tensor)
+            and overflow.dtype == torch.int32 and overflow.dim() == 0
+            and overflow.device == ring.device):
+        raise TypeError(f"{what}: the running overflow must be a 0-d int32 "
+                        f"tensor on {ring.device}, got {overflow!r}")
 
 
 def _launch_args(what, ring, targets, weights, dbins, pmask, spiked_prev,
-                 V, I_ex, I_in, refrac, ext_ex, i_dc, t, n_exc, budget,
-                 prop, coef):
+                 V, I_ex, I_in, refrac, ext_cnt, i_dc, t, overflow, n_exc,
+                 budget, prop, coef, w_ext):
     """Checks K3's or K4's inputs and allocates the outputs; returns them
     with the C arguments that K3 and K4 share: the session's cached pack,
-    then this step's tensors and the counter ``t``'s address."""
-    _build.require_cuda(what, ring, V, I_ex, I_in, refrac, ext_ex, i_dc)
+    then this step's tensors (0 for no counts), the counter ``t``'s
+    address, the running overflow's, and ``t + 1``'s."""
+    _build.require_cuda(what, ring, V, I_ex, I_in, refrac, i_dc)
     if budget < 1:
         raise ValueError("the fused step needs spike_budget >= 1")
-    pack = _pack(what, ring, targets, weights, dbins, pmask, spiked_prev,
-                 n_exc, budget, prop, coef, t)
     n = V.shape[0]
+    _check_drive(what, ext_cnt, overflow, ring, n)
+    pack = _pack(what, ring, targets, weights, dbins, pmask, spiked_prev,
+                 n_exc, budget, prop, coef, t, w_ext=w_ext)
     dev = ring.device
     Vo, Iexo, Iino = (torch.empty_like(V) for _ in range(3))
     refo = torch.empty_like(refrac)
     spk = torch.empty(n, dtype=torch.bool, device=dev)
     ids = torch.empty(budget, dtype=torch.int32, device=dev)
-    overflow = torch.empty((), dtype=torch.int32, device=dev)
+    overflow_o = torch.empty((), dtype=torch.int32, device=dev)
+    t_o = torch.empty((), dtype=torch.int32, device=dev)
     c_args = (ctypes.addressof(pack),
-              *(t.data_ptr() for t in (spiked_prev, ring, V, I_ex, I_in,
-                                       refrac, ext_ex, i_dc, Vo, Iexo, Iino,
-                                       refo, spk, ids, overflow, t)))
-    return (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args
+              *(x.data_ptr() for x in (spiked_prev, ring, V, I_ex, I_in,
+                                       refrac)),
+              0 if ext_cnt is None else ext_cnt.data_ptr(),
+              *(x.data_ptr() for x in (i_dc, Vo, Iexo, Iino, refo, spk, ids,
+                                       overflow_o, t, overflow, t_o)))
+    return (Vo, Iexo, Iino, refo, spk, ids, overflow_o, t_o), c_args
 
 
 def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
-                refrac, ext_ex, i_dc, t, *, n_exc: int, budget: int,
-                prop: Propagators, stamps=None):
-    """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow)``;
-    see :func:`lif_deliver_plain`.  ``stamps`` (a ``stamps_buffer``, on the
-    card only) selects the stamped kernel, for a phase table."""
+                refrac, ext_cnt, i_dc, t, overflow, *, n_exc: int,
+                budget: int, prop: Propagators, w_ext: float, stamps=None):
+    """Returns ``(ring, V', I_ex', I_in', refrac', spiked, ids, overflow',
+    t')``; see :func:`lif_deliver_plain`.  ``stamps`` (a
+    ``stamps_buffer``, on the card only) selects the stamped kernel, for a
+    phase table."""
     args = (ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
-            refrac, ext_ex, i_dc, t)
+            refrac, ext_cnt, i_dc, t, overflow)
     if ring.device.type == "cpu":
         if stamps is not None:
             raise ValueError("lif_deliver: stamps are the kernel's, on the "
                              "card")
         return lif_deliver_plain(*args, n_exc=n_exc, budget=budget,
-                                 prop=prop)
-    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _launch_args(
+                                 prop=prop, w_ext=w_ext)
+    (Vo, Iexo, Iino, refo, spk, ids, overflow_o, t_o), c_args = _launch_args(
         "lif_deliver", ring, targets, weights, dbins, None, *args[4:],
-        n_exc, budget, prop, None)
+        n_exc, budget, prop, None, w_ext)
     lib = _lib()
     stream = _build.stream_of(ring)
     if stamps is None:
@@ -402,16 +451,16 @@ def lif_deliver(ring, targets, weights, dbins, spiked_prev, V, I_ex, I_in,
                                               stream)
     _build.launches["lif_deliver"] += 1
     _build.check(lib, code, "lif_deliver (cooperative launch)")
-    return ring, Vo, Iexo, Iino, refo, spk, ids, overflow
+    return ring, Vo, Iexo, Iino, refo, spk, ids, overflow_o, t_o
 
 
 def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
-                        V, I_ex, I_in, refrac, ext_ex, i_dc, x_pre, x_post,
-                        t, *, n_exc: int, budget: int,
-                        prop: Propagators, coef: StdpCoef,
+                        V, I_ex, I_in, refrac, ext_cnt, i_dc, x_pre, x_post,
+                        t, overflow, *, n_exc: int, budget: int,
+                        prop: Propagators, w_ext: float, coef: StdpCoef,
                         trace: bool = True, stamps=None):
     """Returns ``(ring, weights, V', I_ex', I_in', refrac', spiked,
-    x_pre', x_post', ids, overflow)``; see
+    x_pre', x_post', ids, overflow', t')``; see
     :func:`lif_deliver_plastic_plain`.  ``stamps`` as for
     :func:`lif_deliver`."""
     if ring.device.type == "cpu":
@@ -420,18 +469,19 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
                              "kernel's, on the card")
         return lif_deliver_plastic_plain(
             ring, targets, weights, dbins, pmask, spiked_prev, V, I_ex,
-            I_in, refrac, ext_ex, i_dc, x_pre, x_post, t, n_exc=n_exc,
-            budget=budget, prop=prop, coef=coef, trace=trace)
+            I_in, refrac, ext_cnt, i_dc, x_pre, x_post, t, overflow,
+            n_exc=n_exc, budget=budget, prop=prop, w_ext=w_ext, coef=coef,
+            trace=trace)
     _build.require_cuda("lif_deliver_plastic", ring, pmask, x_pre, x_post)
     if pmask.dtype != torch.bool or pmask.shape != targets.shape:
         raise TypeError("lif_deliver_plastic: pmask must be bool, shaped "
                         "as the tables")
     if x_pre.dtype != torch.float32 or x_post.dtype != torch.float32:
         raise TypeError("lif_deliver_plastic: traces must be float32")
-    (Vo, Iexo, Iino, refo, spk, ids, overflow), c_args = _launch_args(
+    (Vo, Iexo, Iino, refo, spk, ids, overflow_o, t_o), c_args = _launch_args(
         "lif_deliver_plastic", ring, targets, weights, dbins, pmask,
-        spiked_prev, V, I_ex, I_in, refrac, ext_ex, i_dc, t, n_exc,
-        budget, prop, coef)
+        spiked_prev, V, I_ex, I_in, refrac, ext_cnt, i_dc, t, overflow,
+        n_exc, budget, prop, coef, w_ext)
     x_pre_o, x_post_o = ((torch.empty_like(x_pre), torch.empty_like(x_post))
                          if trace else (x_pre, x_post))
     traces = (x_pre.data_ptr(), x_post.data_ptr(), x_pre_o.data_ptr(),
@@ -447,7 +497,7 @@ def lif_deliver_plastic(ring, targets, weights, dbins, pmask, spiked_prev,
     _build.launches["lif_deliver_plastic"] += 1
     _build.check(lib, code, "lif_deliver_plastic (cooperative launch)")
     return (ring, weights, Vo, Iexo, Iino, refo, spk, x_pre_o, x_post_o, ids,
-            overflow)
+            overflow_o, t_o)
 
 
 def deliver(ring, targets, weights, dbins, spiked, t, *, n_exc: int,

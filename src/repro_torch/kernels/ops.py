@@ -43,40 +43,49 @@ def ell_deliver(ring: torch.Tensor, tables, spiked: torch.Tensor, t,
     return ring, overflow
 
 
+def _contiguous(x):
+    return None if x is None else x.contiguous()
+
+
 def lif_deliver(state: NeuronState, ring: torch.Tensor, t,
                 spiked_prev: torch.Tensor, tables, prop: Propagators,
-                ext_ex: torch.Tensor, i_dc: torch.Tensor, *, n_exc: int,
-                spike_budget: int):
+                ext_cnt, i_dc: torch.Tensor, *, n_exc: int,
+                spike_budget: int, w_ext: float, overflow: torch.Tensor):
     """Fused step (K3): deliver ``spiked_prev`` at phase ``t - 1``, then
-    integrate step ``t``.  Returns ``(neuron', ring, spiked, overflow)``,
-    the overflow being the delivered step's budget excess."""
-    (ring, V, I_ex, I_in, refrac, spiked, _,
-     overflow) = _fused.lif_deliver(
+    integrate step ``t``.  The reference's arguments, but the drive as the
+    step draws it: ``ext_cnt`` the float32 spike counts (None: no spike
+    drive) and ``w_ext`` their weight; ``overflow`` the running overflow.
+    Returns ``(neuron', ring, spiked, t + 1, overflow')``, the overflow
+    having gained the delivered step's budget excess."""
+    (ring, V, I_ex, I_in, refrac, spiked, _, overflow,
+     t) = _fused.lif_deliver(
         ring, tables.targets, tables.weights, tables.dbins, spiked_prev,
-        state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
-        i_dc.contiguous(), t, n_exc=n_exc, budget=spike_budget, prop=prop)
-    return NeuronState(V, I_ex, I_in, refrac), ring, spiked, overflow
+        state.V, state.I_ex, state.I_in, state.refrac, _contiguous(ext_cnt),
+        i_dc.contiguous(), t, overflow, n_exc=n_exc, budget=spike_budget,
+        prop=prop, w_ext=w_ext)
+    return NeuronState(V, I_ex, I_in, refrac), ring, spiked, t, overflow
 
 
 def lif_deliver_plastic(state: NeuronState, ring: torch.Tensor, t,
                         spiked_prev: torch.Tensor, tables, pmask, ps,
-                        prop: Propagators, ext_ex: torch.Tensor,
-                        i_dc: torch.Tensor, *, n_exc: int, spike_budget: int,
-                        coef, trace: bool = True):
+                        prop: Propagators, ext_cnt, i_dc: torch.Tensor, *,
+                        n_exc: int, spike_budget: int, w_ext: float,
+                        overflow: torch.Tensor, coef, trace: bool = True):
     """Fused plastic step (K4): deliver ``spiked_prev`` at phase ``t - 1``
     through the live table ``ps.weights`` (depressing its plastic entries
-    ``pmask`` in place), update the traces, then integrate step ``t``.
-    Returns ``(neuron', ring, spiked, ps', ids, overflow)``; ``ps'`` is a
+    ``pmask`` in place), update the traces, then integrate step ``t``; the
+    drive and the counters as for :func:`lif_deliver`.  Returns
+    ``(neuron', ring, spiked, ps', ids, t + 1, overflow')``; ``ps'`` is a
     ``PlasticState`` of the same table and the new traces, ``ids`` the
     delivered ids for ``stdp_pot_clip``."""
-    (ring, w, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids,
-     overflow) = _fused.lif_deliver_plastic(
+    (ring, w, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids, overflow,
+     t) = _fused.lif_deliver_plastic(
         ring, tables.targets, ps.weights, tables.dbins, pmask, spiked_prev,
-        state.V, state.I_ex, state.I_in, state.refrac, ext_ex.contiguous(),
-        i_dc.contiguous(), ps.x_pre, ps.x_post, t, n_exc=n_exc,
-        budget=spike_budget, prop=prop, coef=coef, trace=trace)
+        state.V, state.I_ex, state.I_in, state.refrac, _contiguous(ext_cnt),
+        i_dc.contiguous(), ps.x_pre, ps.x_post, t, overflow, n_exc=n_exc,
+        budget=spike_budget, prop=prop, w_ext=w_ext, coef=coef, trace=trace)
     return (NeuronState(V, I_ex, I_in, refrac), ring, spiked,
-            ps._replace(weights=w, x_pre=x_pre, x_post=x_post), ids,
+            ps._replace(weights=w, x_pre=x_pre, x_post=x_post), ids, t,
             overflow)
 
 

@@ -25,7 +25,9 @@ buffer is bounded (:data:`MAX_SPANS`; what a full buffer drops counts as
 ``trace.dropped``) and shared by every thread, under one lock.
 
 :func:`count` is always on: plain integers, as ``kernels._build.launches``
-is.  :func:`counters` is one snapshot of them, of ``_build.launches``
+is, and like the launches, what a CUDA graph's capture counts is taken
+back and added at each of its replays (``api.backends._Graph``).
+:func:`counters` is one snapshot of them, of ``_build.launches``
 (``launches.<kernel>``) and of the graph caches' captures
 (``graphs.captures``), read where they live.
 
@@ -49,6 +51,9 @@ step       ``step`` > ``step.drive``,                  one eager step; the
            ``step.deliver``, ``step.stdp``,            drive, K3/K4 (or the
            ``step.probe`` (``step.update`` in the      delivery), STDP, the
            split loop, around its update phase)        probes
+step       ``drive.float_counts`` (counter)            fused steps whose
+                                                       drive reached K3/K4
+                                                       as drawn, uncast
 =========  ==========================================  =====================
 """
 from __future__ import annotations
@@ -205,14 +210,19 @@ def take() -> List[Span]:
     return [Span._make(f) for f in out]
 
 
+def tally() -> Dict[str, int]:
+    """One snapshot of the counters that :func:`count` keeps."""
+    with _lock:
+        return dict(_counts)
+
+
 def counters() -> Dict[str, int]:
     """One snapshot of the counters, of the kernels' launches
     (``launches.<kernel>``) and of the graph captures
     (``graphs.captures``: the misses of every backend's graph cache)."""
     from repro_torch.kernels import _build
     from repro_torch.serve import compile_cache
-    with _lock:
-        out = dict(_counts)
+    out = tally()
     out.update((f"launches.{k}", v) for k, v in _build.launches.items())
     out["graphs.captures"] = sum(c.misses for c in compile_cache.iter_caches()
                                  if c.name.endswith(".graphs"))

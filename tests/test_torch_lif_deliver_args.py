@@ -6,8 +6,8 @@ the coefficients) once per session and cache it.  Here the cached pack
 that the launch path takes (``session_pack``) must equal, field by field,
 the pack built afresh from the same tensors and values as a call without
 the cache would build it, for two networks and for K3, K4 and K2 (the
-kernel's delivery-only form: no propagators), asked for in turns so that a
-stale hit would show; ``stdp_update``'s pack likewise, and it must change
+kernel's delivery-only form: no propagators, no ``w_ext``), asked for in
+turns so that a stale hit would show; ``stdp_update``'s pack likewise, and it must change
 with the budget, the grid and each table.  Also: the packs' C layouts, the
 compaction's tiles cover ``[0, N)`` for any N and grid (K2's grids among
 them), and the stamped kernels are refused on CPU tensors.
@@ -61,7 +61,8 @@ def _inputs(net, plastic, budget=128, grid=7):
         budget=budget,
         grid=grid, prop=None if plastic is None
         else Propagators.make(NeuronParams(), 0.1),
-        coef=net["coef"] if plastic else None)
+        coef=net["coef"] if plastic else None,
+        w_ext=0.0 if plastic is None else float(c.w_ext))
 
 
 def _fresh(x):
@@ -82,7 +83,8 @@ def _fresh(x):
             "ref_steps": p.ref_steps if p else 0,
             "dep_coef": f32(coef.dep) if coef else 0.0,
             "decay_p": f32(coef.decay_p) if coef else 0.0,
-            "decay_m": f32(coef.decay_m) if coef else 0.0}
+            "decay_m": f32(coef.decay_m) if coef else 0.0,
+            "w_ext": f32(x["w_ext"])}
 
 
 def _fields(pack):
@@ -113,7 +115,7 @@ def test_cached_pack_equals_per_call_pack(nets, net_name, plastic):
          x["dbins"].data_ptr(), 0 if x["pmask"] is None
          else x["pmask"].data_ptr(), x["ws"].data_ptr()),
         (x["targets"].shape[1], x["n"], x["n_tgt"], x["n_exc"], x["d_bins"],
-         x["budget"], x["grid"]), x["prop"], x["coef"]))
+         x["budget"], x["grid"]), x["prop"], x["coef"], x["w_ext"]))
     assert _fields(again) == _fresh(x)
     assert _fields(again) != _fields(K3.session_pack(
         *(_inputs(nets[other], plastic)[k] for k in ("targets", "weights",
@@ -131,7 +133,7 @@ def test_pack_changes_with_the_budget_and_grid(nets):
     base = K3.session_pack(*args, **kw)
     # the ring's target count: K2's local-ring form over a rank's block
     for change in ({"budget": 256}, {"grid": 3}, {"n_exc": x["n_exc"] - 1},
-                   {"n_tgt": x["n"] // 2}):
+                   {"n_tgt": x["n"] // 2}, {"w_ext": 2.5}):
         pack = K3.session_pack(*args, **{**kw, **change})
         (key, want), = change.items()
         assert getattr(pack, key) == want and getattr(base, key) != want
@@ -139,13 +141,16 @@ def test_pack_changes_with_the_budget_and_grid(nets):
 
 def test_step_const_has_the_c_layout():
     """5 pointers, k_pad..grid (the ring's target count n_tgt after n),
-    the 10 LifProp fields, K4's 3 floats: the C struct's 120 bytes
-    (checked against the library on the card)."""
-    assert ctypes.sizeof(K3.StepConst) == 5 * 8 + 7 * 4 + 10 * 4 + 3 * 4
+    the 10 LifProp fields, K4's 3 floats, K3's and K4's ``w_ext``: the C
+    struct's 124 bytes, padded to 128 by its pointers' alignment (checked
+    against the library on the card)."""
+    assert ctypes.sizeof(K3.StepConst) == 5 * 8 + 7 * 4 + 10 * 4 + 3 * 4 \
+        + 4 + 4
     assert K3.StepConst.k_pad.offset == 40
     assert K3.StepConst.n_tgt.offset == 48
     assert K3.StepConst.P11_ex.offset == 68
     assert K3.StepConst.dep_coef.offset == 108
+    assert K3.StepConst.w_ext.offset == 120
 
 
 @pytest.mark.parametrize("n,grid", [(77_169, 132), (1_544, 7), (10, 132),
@@ -172,25 +177,27 @@ def test_stamps_need_the_card(nets):
                        tb.weights, tb.dbins, torch.zeros(n, dtype=torch.bool),
                        z, z, z, torch.zeros(n, dtype=torch.int32), z, z,
                        torch.tensor(7, dtype=torch.int32),
-                       n_exc=c.n_exc, budget=128,
+                       torch.tensor(0, dtype=torch.int32),
+                       n_exc=c.n_exc, budget=128, w_ext=float(c.w_ext),
                        prop=Propagators.make(NeuronParams(), 0.1),
                        stamps=torch.zeros(7, 8, dtype=torch.int64))
 
 
 def test_deliver_pack_has_no_propagators(nets):
     """K2's pack: the shared C layout, the tables, sizes and workspace, and
-    zeros where K3 keeps its propagators and K4 its coefficients."""
+    zeros where K3 keeps its propagators and ``w_ext`` and K4 its
+    coefficients."""
     x = _inputs(nets["scale_0.02_seed_55"], None)
     pack = K3.session_pack(x["targets"], x["weights"], x["dbins"], None,
                            x["ws"], **{k: x[k] for k in (
                                "n", "n_exc", "d_bins", "budget", "grid",
                                "prop", "coef")})
     assert type(pack) is K3.StepConst
-    assert ctypes.sizeof(pack) == 120
+    assert ctypes.sizeof(pack) == 128
     got = _fields(pack)
     assert got["pmask"] is None and got["ws"] == x["ws"].data_ptr()
     assert all(got[f] == 0 for f in ("P11_ex", "P22", "V_th", "ref_steps",
-                                     "dep_coef", "decay_m"))
+                                     "dep_coef", "decay_m", "w_ext"))
     k3 = K3.session_pack(x["targets"], x["weights"], x["dbins"], None,
                          x["ws"], **{**{k: x[k] for k in (
                              "n", "n_exc", "d_bins", "budget", "grid")},

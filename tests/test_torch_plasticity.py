@@ -331,16 +331,18 @@ def _assert_k4_equals_jax(net, seed, jps, ps, spiked_prev):
     # the port: K4 (plain on the CPU), then the potentiation and clip
     tb = net["tables"]
     x_pre0 = ps.x_pre
-    ext_ex = c.w_ext * torch.from_numpy(counts).to(torch.float32)
-    (pring, w, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids,
-     ovf) = lif_deliver_plastic(
+    ext_cnt = torch.from_numpy(counts).to(torch.float32)
+    (pring, w, V, I_ex, I_in, refrac, spiked, x_pre, x_post, ids, ovf,
+     t_next) = lif_deliver_plastic(
         torch.from_numpy(ring), tb.targets, ps.weights, tb.dbins,
         net["ptab"].plastic_out, torch.from_numpy(spiked_prev),
         *(torch.from_numpy(x[k]) for k in ("V", "I_ex", "I_in", "refrac")),
-        ext_ex, torch.as_tensor(c.i_dc), ps.x_pre, ps.x_post,
-        torch.tensor(t, dtype=torch.int32), n_exc=c.n_exc, budget=BUDGET, prop=Propagators.make(NeuronParams(),
-                                                            DT),
+        ext_cnt, torch.as_tensor(c.i_dc), ps.x_pre, ps.x_post,
+        torch.tensor(t, dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32), n_exc=c.n_exc, budget=BUDGET,
+        prop=Propagators.make(NeuronParams(), DT), w_ext=c.w_ext,
         coef=net["coef"])
+    assert int(t_next) == t + 1
     assert w is ps.weights
     PL.stdp_pot_clip(w, x_pre0, ids, net["ptab"], net["coef"])
     for name, a, b in zip(("ring", "V", "I_ex", "I_in", "refrac", "spiked",
@@ -369,7 +371,9 @@ def test_first_rotated_step_keeps_traces(net):
         torch.zeros(n, dtype=torch.bool), net["tables"],
         net["ptab"].plastic_out, ps, Propagators.make(NeuronParams(), DT),
         torch.zeros(n), torch.as_tensor(c.i_dc), n_exc=c.n_exc,
-        spike_budget=BUDGET, coef=net["coef"], trace=False)
+        spike_budget=BUDGET, w_ext=c.w_ext,
+        overflow=torch.zeros((), dtype=torch.int32), coef=net["coef"],
+        trace=False)
     assert out[3].x_pre is ps.x_pre and out[3].x_post is ps.x_post
     assert (out[4] == n).all()
 

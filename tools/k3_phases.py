@@ -27,6 +27,7 @@ alternating the trees within one machine call::
     done
 """
 import argparse
+import inspect
 import json
 import statistics
 import sys
@@ -44,6 +45,8 @@ from chip_smoke import (ENTRY_OPS, bound, call_ms, card_line,  # noqa: E402
 
 
 KERNELS = ("k3", "k4", "k2", "stdp")
+#: the microcircuit's external weight at full scale (pA)
+W_EXT = 87.80849352920845
 
 
 def host_us(launch, batches: int = 20, calls: int = 50) -> float:
@@ -104,12 +107,12 @@ def main() -> None:
     ring[:, 0, :n] = rng.uniform(0, 50, (d, n))
     ring[:, 1, :n] = -rng.uniform(0, 50, (d, n))
     ring = on(ring)
-    state = (on(rng.uniform(-80, -45, n).astype(np.float32)),
-             on((rng.uniform(0, 1, n) * 400).astype(np.float32)),
-             on((-rng.uniform(0, 1, n) * 400).astype(np.float32)),
-             on(rng.integers(0, 21, n).astype(np.int32)),
-             on(rng.uniform(0, 100, n).astype(np.float32)),
-             on(np.full(n, 10.0, np.float32)))
+    neurons = (on(rng.uniform(-80, -45, n).astype(np.float32)),
+               on((rng.uniform(0, 1, n) * 400).astype(np.float32)),
+               on((-rng.uniform(0, 1, n) * 400).astype(np.float32)),
+               on(rng.integers(0, 21, n).astype(np.int32)))
+    counts = on(rng.poisson(1.6, n).astype(np.float32))
+    i_dc = on(np.full(n, 10.0, np.float32))
     x_pre, x_post = (on(rng.uniform(0, 3, n).astype(np.float32))
                      for _ in range(2))
     spks = []
@@ -123,18 +126,27 @@ def main() -> None:
     # kernels read it there (``lif_deliver.step_counter``), an int before
     t_step = (torch.tensor(1234, dtype=torch.int32, device=dev)
               if hasattr(K3, "step_counter") else 1234)
+    # the drive: the float counts with w_ext and the running overflow in a
+    # tree whose K3 and K4 take them, the weighted input before
+    if "w_ext" in inspect.signature(K3.lif_deliver).parameters:
+        state, tail = (*neurons, counts, i_dc), (
+            t_step, torch.zeros((), dtype=torch.int32, device=dev))
+        drive_kw = {"w_ext": W_EXT}
+    else:
+        state, tail, drive_kw = (*neurons, W_EXT * counts, i_dc), (t_step,), {}
     # (launch, stamps buffer or None, phase names)
     k3_stamps = lambda: K3.stamps_buffer(dev, n + 1)
     launches = {}
     if "k3" in args.kernel:
         launches["K3"] = (lambda i, **kw: K3.lif_deliver(
-            ring, targets, weights, dbins, spks[i % 64], *state, t_step,
-            n_exc=n_exc, budget=256, prop=prop, **kw), k3_stamps, K3.PHASES)
+            ring, targets, weights, dbins, spks[i % 64], *state, *tail,
+            n_exc=n_exc, budget=256, prop=prop, **drive_kw, **kw),
+            k3_stamps, K3.PHASES)
     if "k4" in args.kernel:
         launches["K4"] = (lambda i, **kw: K3.lif_deliver_plastic(
             ring, targets, weights, dbins, pmask, spks[i % 64], *state,
-            x_pre, x_post, t_step, n_exc=n_exc, budget=256, prop=prop,
-            coef=coef, **kw), k3_stamps, K3.PHASES)
+            x_pre, x_post, *tail, n_exc=n_exc, budget=256, prop=prop,
+            coef=coef, **drive_kw, **kw), k3_stamps, K3.PHASES)
     bounds = {}
     if "k2" in args.kernel:
         # the real entries of the spiking rows (all delivered: 25 < 256)
