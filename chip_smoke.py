@@ -329,23 +329,16 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
+from perfbench.roofline import (ENTRY_OPS, FP32_OPS_PER_S, HBM_BYTES_PER_S,
+                                LIF_OPS, bound_s, k2_bytes, stdp_bytes)
+
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-#: H100 SXM memory rate, float32 rate outside the tensor cores and dense
-#: bfloat16 tensor-core rate (NVIDIA data sheet, 700 W)
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+#: dense bfloat16 tensor-core rate of the H100 SXM (NVIDIA data sheet,
+#: 700 W), for K6; the other peaks and the kernels' bytes and operations
+#: are the benchmark's (perfbench/roofline.py)
 BF16_TC_OPS_PER_S = 989e12
-#: float32 products and sums per neuron of one LIF step (lif_neuron in
-#: csrc/common.cuh; its compares and selects are not counted)
-LIF_OPS = 13
-#: operations per delivered ELL entry: the slot's add and modulo, and the
-#: atomic add
-ENTRY_OPS = 3
-#: full-scale mean rates (Hz), POPULATIONS order L23E L4E L5E L6E L23I L4I
-#: L5I L6I -- the reference's FULL_MEAN_RATES, copied
-FULL_MEAN_RATES = [0.971, 4.746, 8.142, 0.991, 2.868, 5.396, 9.078, 7.523]
 RATE_REL_TOL, RATE_ABS_TOL = 0.5, 1.0      # validate/reference.py:60-78
 RING_RTOL = RING_ATOL = 1e-5
 #: a check that [experiment_full] fails is held to the plain witness's
@@ -500,6 +493,7 @@ def bitwise(a, b) -> bool:
 
 
 def check_rates(rates, what: str) -> None:
+    from repro_torch.core.params import FULL_MEAN_RATES
     for p, r, ref in zip(POPS, rates, FULL_MEAN_RATES):
         lo = max(0.0, ref * (1 - RATE_REL_TOL) - RATE_ABS_TOL)
         hi = ref * (1 + RATE_REL_TOL) + RATE_ABS_TOL
@@ -644,7 +638,7 @@ def graph_draws(backend, seed: int) -> dict:
     twin = torch.Generator(device=dev)
     twin.set_state(gen.get_state())
     t = torch.zeros((), dtype=torch.int32, device=dev)
-    buf = torch.zeros(backend.c.n_total, dtype=torch.int32, device=dev)
+    buf = torch.zeros(backend.c.n_total, dtype=torch.float32, device=dev)
     backend.drive(torch.Generator(device=dev), t, None)     # warm-up
     graph = backend.graph_type(
         lambda: buf.copy_(backend.drive(gen, t, None)[1]), gen,
@@ -683,29 +677,13 @@ def stdp_counts(targets, pmask, in_syn, pmask_in, ids_list) -> dict:
     return cnt
 
 
-def stdp_bytes(cnt: dict, budget: int) -> float:
-    """``stdp_update``'s bytes (``full=False``): the ids; the IN rows'
-    masks, and the plastic entries' index and weight (read and written);
-    each distinct source's trace once; the OUT rows' masks and plastic
-    weights, read for the clip."""
-    return (4 * budget + cnt["in"] + 12 * cnt["in_plastic"]
-            + 4 * cnt["sources"] + cnt["out"] + 4 * cnt["out_plastic"])
-
-
-def k2_bytes(n: int, budget: int, n_entries: float) -> float:
-    """K2's bytes: the spike vector, the ids, the overflow, the real rows'
-    (target, weight, dbin) entries and a read-modify-write of the ring
-    cell each real entry adds into."""
-    return n + 4 * budget + 4 + n_entries * (12 + 8)
-
-
 def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
-    """(ms, "bytes" | "operations"): the least time the card could take,
-    the larger of the bytes over the memory rate and the operations over
-    the rate of their type (float32 by default)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    """(ms, "bytes" | "operations"): ``roofline.bound_s`` in ms, and which
+    of the two bounds it, the bytes over the memory rate or the operations
+    over the rate of their type (float32 by default)."""
+    t = bound_s(n_bytes, n_ops, ops_per_s)
+    return t * 1e3, ("bytes" if n_bytes / HBM_BYTES_PER_S >= t
+                     else "operations")
 
 
 def sm90_build(_build) -> None:
@@ -2455,7 +2433,6 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
     import torch
     from repro_torch.analysis import graph_contract as GC
     from repro_torch.kernels import _build
-    from repro_torch.perf import trace
     from repro_torch.perf.step_analysis import kernel_census
     t0 = time.perf_counter()
     out = GC.check_graphed(sim, symbol=label)
@@ -2464,10 +2441,8 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
              + "; ".join(f.format() for f in out["findings"]))
     probes = tuple(sim.probes)
     _build.reset_launches()
-    counted = trace.tally().get("drive.float_counts", 0)
     sim.backend.run(sim.state, CONTRACT_STEPS, probes)
     torch.cuda.synchronize()
-    counted = trace.tally().get("drive.float_counts", 0) - counted
     per_step = {k: _build.launches[k] / CONTRACT_STEPS for k in kernels}
     if any(v != 1.0 for v in per_step.values()):
         fail(f"graph_contract {label}: kernels a step {per_step}, not 1")
@@ -2500,17 +2475,14 @@ def graph_contract_line(label: str, sim, card: str, kernels) -> dict:
         float64_tensors=c["f64_tensors"], seconds=time.perf_counter() - t0,
         card=json.dumps(card))
     return {"census": census, "body_ms_per_step": body_ms,
-            "eager_ops": c["ops"],
-            "float_counts": f"{counted} of {CONTRACT_STEPS}"}
+            "eager_ops": c["ops"]}
 
 
 def step_census_line(label: str, contract: dict, ms_step: float,
                      card: str) -> None:
     """``[step_census]``: the profiler's table of one replayed body (each
     kernel's launches and device µs a step), its sum against the body
-    replay's event time a step and the run's graphed ms a step, and the
-    steps of a warm run whose drive reached the kernel as drawn float
-    counts (``drive.float_counts``)."""
+    replay's event time a step and the run's graphed ms a step."""
     census = contract["census"]
     say("step_census", path=label, kernels=json.dumps({
         k: {"launches_per_step": round(v["launches_per_step"], 3),
@@ -2523,7 +2495,7 @@ def step_census_line(label: str, contract: dict, ms_step: float,
         busy_share_of_body=census["us_per_step"] / 1e3
         / contract["body_ms_per_step"],
         eager_aten_ops_per_step=json.dumps(contract["eager_ops"]),
-        drive_float_counts=contract["float_counts"], card=json.dumps(card))
+        card=json.dumps(card))
 
 
 #: the step of the next run into whose ring slot ``[sanitize]`` puts a NaN

@@ -38,14 +38,15 @@ from repro_torch.analysis.report import Finding
 from repro_torch.perf.step_analysis import op_census
 
 #: casts a step may dispatch: today's largest count over the committed
-#: scenarios, 22 (``stdp_ee.json`` on the phase-split step, on the CPU,
-#: where the plain versions run op by op; 21 on the one-kernel step).  The
+#: scenarios, 21 (``stdp_ee.json`` on the one-kernel step, on the CPU,
+#: where the plain versions run op by op; 20 on the phase-split step, which
+#: takes the drive's float counts as the one-kernel step does).  The
 #: static main path's step (``ell``, ``pop_counts``, the 8 Hz background)
 #: dispatches 7 on the one-kernel step there, in 87 ops, and none on the
 #: card, in 11 ops around the draw, K3 and the probe's kernel: K3 takes
 #: the drive's float counts as drawn (``chip_smoke.py``'s
 #: ``[graph_contract]``, PERF.md).
-DEFAULT_MAX_CASTS = 22
+DEFAULT_MAX_CASTS = 21
 
 
 def _clone_state(state):

@@ -87,8 +87,8 @@ capture the backend runs each kind of step once eagerly on a copy of the
 state (building the kernels, their workspaces and argument packs), and
 before each capture it evaluates the probes once on the static state, so
 that nothing is first built inside a capture.  A replay adds the launches
-its graph holds to ``kernels._build.launches``, and the counts its capture
-made to ``perf.trace``'s counters, as the captured steps would have.
+its graph holds to ``kernels._build.launches``, as the captured steps
+would have.
 """
 from __future__ import annotations
 
@@ -543,13 +543,9 @@ class _LoopBackend(Backend):
 
 
 class _Graph:
-    """One captured CUDA graph of ``fn``, which draws from ``generator``:
-    the launches it holds by kernel, added to ``_build.launches`` at each
-    replay (the capture itself launches nothing), and so the counts of
-    ``perf.trace.count`` that its capture made."""
-
-    #: the counts of ``perf.trace.count`` that the capture made, by name
-    counts: Dict[str, int] = {}
+    """One captured CUDA graph of ``fn``, which draws from ``generator``,
+    and the launches it holds by kernel, added to ``_build.launches`` at
+    each replay (the capture itself launches nothing)."""
 
     def __init__(self, fn: Callable[[], None], generator, pool):
         graph = torch.cuda.CUDAGraph()
@@ -560,7 +556,7 @@ class _Graph:
                     f"generator with a CUDA graph: the graphed loop's "
                     f"Poisson draws would repeat at every replay")
             graph.register_generator_state(generator)
-        before, tally = dict(_build.launches), trace.tally()
+        before = dict(_build.launches)
         # A graph that dies during the capture (a dropped session's, freed
         # by the cycle collector) is destroyed there, which voids the
         # capture: collect first, and not while capturing.
@@ -575,25 +571,17 @@ class _Graph:
                 gc.enable()
             captured = {k: _build.launches[k] - before[k] for k in before}
             _build.launches.update(before)
-            counted = {k: v - tally.get(k, 0)
-                       for k, v in trace.tally().items()
-                       if v != tally.get(k, 0)}
-            for k, v in counted.items():
-                trace.count(k, -v)
         self.graph = graph
         # the function's closure holds tensors the graph reads (the rows'
         # offsets); their memory must not go back to the allocator
         self.fn = fn
         self.launches = {k: v for k, v in captured.items() if v}
-        self.counts = counted
 
     def replay(self, times: int = 1) -> None:
         for _ in range(times):
             self.graph.replay()
         for k, v in self.launches.items():
             _build.launches[k] += v * times
-        for k, v in self.counts.items():
-            trace.count(k, v * times)
 
     @staticmethod
     def new_pool():

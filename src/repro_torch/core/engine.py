@@ -15,9 +15,11 @@ Differences from the reference, all deliberate:
 As in the reference, the step counter ``t`` is a 0-d int32 tensor on the
 session's device, like the overflow counter: the kernels read it there, the
 stimulus gates are tensor functions of it, and each step advances it, the
-split step with an op of its own, the fused step inside K3 or K4 (which
-also take the drive's float counts and form ``w_ext`` times them, so the
-fused step launches no cast, product or counter op around its kernel).
+split step with an op of its own, the fused step inside K3 or K4.  The
+drive is one: every loop takes its float32 spike counts as drawn.  The
+split step adds ``w_ext`` times them to the slot's arrivals; K3 and K4
+take the counts and ``w_ext`` and form the same product, so the fused
+step launches no cast, product or counter op around its kernel.
 Nothing on a step's path reads a device value back to the host, so a run
 of steps can be captured in a CUDA graph (``repro_torch.api.backends``).
 
@@ -43,7 +45,7 @@ from repro_torch.core.device import session_device
 from repro_torch.core.neuron import NeuronState, Propagators, lif_step
 from repro_torch.core.params import NeuronParams
 from repro_torch.kernels.lif_deliver import slot_index
-from repro_torch.perf.trace import count, span
+from repro_torch.perf.trace import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,18 +148,14 @@ def init_state(net: Network, d_max_bins: int, generator: torch.Generator,
                     overflow=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _external_drive(state: SimState, net: Network, w_ext: float, dtype,
-                    drive: stim.Drive):
-    """Evaluate the drive: ``(ext_ex, i_dc)`` where ``ext_ex`` is the
-    external excitatory current (``w_ext`` times the int32 counts, as in
-    the reference; None when no stimulus feeds spikes) and ``i_dc`` the
-    effective DC term."""
-    i_dc = net.i_dc
-    I_ext, ext_in = drive(state.generator, state.t, state)
-    ext_ex = None if ext_in is None else w_ext * ext_in.to(dtype)
-    if I_ext is not None:
-        i_dc = i_dc + I_ext
-    return ext_ex, i_dc
+def _evaluate_drive(state: SimState, net: Network, drive: stim.Drive):
+    """Evaluate the drive: ``(ext_cnt, i_dc)``, the float32 spike counts as
+    drawn (None when no stimulus feeds spikes) and the effective DC term.
+    Every loop takes these: the split step adds ``w_ext`` times the counts
+    to the slot's arrivals, as the reference does with its int32 counts;
+    K3 and K4 take the counts and ``w_ext`` and form the same product."""
+    I_ext, ext_cnt = drive(state.generator, state.t, state)
+    return ext_cnt, net.i_dc if I_ext is None else net.i_dc + I_ext
 
 
 def update_phase(state: SimState, net: Network, prop: Propagators,
@@ -169,10 +167,9 @@ def update_phase(state: SimState, net: Network, prop: Propagators,
     in_ex = arrivals[0, :n]
     in_in = arrivals[1, :n]
     with span("step.drive"):
-        ext_ex, i_dc = _external_drive(state, net, w_ext, in_ex.dtype,
-                                       drive)
-    if ext_ex is not None:
-        in_ex = in_ex + ext_ex
+        ext_cnt, i_dc = _evaluate_drive(state, net, drive)
+    if ext_cnt is not None:
+        in_ex = in_ex + w_ext * ext_cnt.to(in_ex.dtype)
     pol = kpol.policy_of(cfg)
     if pol is not None and pol.kernels:
         from repro_torch.kernels import ops as kops
@@ -194,12 +191,13 @@ def fused_update_phase(state: SimState, net: Network, prop: Propagators,
     the loop.  Returns ``(state, spiked)`` with ``t`` advanced by one."""
     from repro_torch.kernels import ops as kops
     with span("step.drive"):
-        ext_cnt, i_dc = _fused_drive(state, net, n, drive)
+        ext_cnt, i_dc = _evaluate_drive(state, net, drive)
     with span("step.deliver"):
         neuron, ring, spiked, t, overflow = kops.lif_deliver(
             state.neuron, state.ring, state.t, spiked_prev, net.tables,
-            prop, ext_cnt, i_dc, n_exc=n_exc, spike_budget=cfg.spike_budget,
-            w_ext=w_ext, overflow=state.overflow)
+            prop, ext_cnt, i_dc.expand(n).to(state.ring.dtype), n_exc=n_exc,
+            spike_budget=cfg.spike_budget, w_ext=w_ext,
+            overflow=state.overflow)
     return SimState(neuron, ring, t, state.generator, overflow), spiked
 
 
@@ -217,28 +215,16 @@ def fused_plastic_update_phase(state: SimState, ps, net: Network,
     ``(state, ps', spiked, ids)``; ``ps'`` holds the new traces."""
     from repro_torch.kernels import ops as kops
     with span("step.drive"):
-        ext_cnt, i_dc = _fused_drive(state, net, n, drive)
+        ext_cnt, i_dc = _evaluate_drive(state, net, drive)
     with span("step.deliver"):
         neuron, ring, spiked, ps, ids, t, overflow = kops.lif_deliver_plastic(
             state.neuron, state.ring, state.t, spiked_prev, net.tables,
-            bound.tables.plastic_out, ps, prop, ext_cnt, i_dc, n_exc=n_exc,
+            bound.tables.plastic_out, ps, prop, ext_cnt,
+            i_dc.expand(n).to(state.ring.dtype), n_exc=n_exc,
             spike_budget=cfg.spike_budget, w_ext=w_ext,
             overflow=state.overflow, coef=bound.coef, trace=trace)
     return (SimState(neuron, ring, t, state.generator, overflow), ps, spiked,
             ids)
-
-
-def _fused_drive(state: SimState, net: Network, n: int, drive: stim.Drive):
-    """The external drive as K3 and K4 take it: the float32 spike counts
-    as drawn (None when no stimulus feeds spikes), which the kernel weights
-    by ``w_ext``, and the [N] DC term.  A separable drive's counts are the
-    draws themselves, with no cast: such a step counts as
-    ``drive.float_counts``."""
-    I_ext, ext_cnt = drive.counts(state.generator, state.t, state)
-    i_dc = net.i_dc if I_ext is None else net.i_dc + I_ext
-    if drive.separable:
-        count("drive.float_counts")
-    return ext_cnt, i_dc.expand(n).to(state.ring.dtype)
 
 
 def deliver_phase(state: SimState, net: Network, cfg: SimConfig,

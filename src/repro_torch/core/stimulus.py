@@ -105,19 +105,14 @@ class Drive:
         """Evaluate every stimulus at step ``t_step`` (the counter tensor);
         sums per channel.
 
-        Returns ``(I_ext, ext_in)`` with ``None`` for a channel no stimulus
-        feeds.  ``ext_in`` is an int32 spike count, as in the reference:
-        :meth:`counts`'s float32 counts, cast once (the cast is exact).
-        """
-        I_ext, ext_cnt = self.counts(generator, t_step, state)
-        return I_ext, None if ext_cnt is None else ext_cnt.to(torch.int32)
-
-    def counts(self, generator: Optional[torch.Generator], t_step, state):
-        """:meth:`__call__` with the spike counts in float32, as the fused
-        kernels take them: ``torch.poisson``'s draws as they come, an
-        ``fn`` stimulus's counts cast once.  The draws are whole numbers
-        and their sums stay below 2**24, so these are exactly the int32
-        counts' values, from the same draws of ``generator``."""
+        Returns ``(I_ext, ext_cnt)`` with ``None`` for a channel no
+        stimulus feeds.  ``ext_cnt`` is the spike counts in float32, as
+        every loop takes them: ``torch.poisson``'s draws as they come, an
+        ``fn`` stimulus's counts cast once and not truncated (the
+        reference allows scaled counts and uses them as they are).  The
+        draws are whole numbers and their sums stay below 2**24, so
+        ``w_ext`` times them is the reference's product of its int32
+        counts, bit for bit."""
         I_ext, ext_cnt = None, None
         for s, basis in zip(self.compiled, self.bases):
             gen = generator if s.stochastic else None

@@ -18,7 +18,7 @@ launches no op for its counters; the plain versions compute the slot by
 index arithmetic on the tensor, with no read back to the host.
 
 The external drive comes as the step draws it: ``ext_cnt``, the float32
-spike counts (``Drive.counts``; None when no stimulus feeds spikes), and
+spike counts the drive returns (None when no stimulus feeds spikes), and
 the weight ``w_ext``.  Each neuron's input is ``row_ex + w_ext * ext_cnt``,
 the product rounded once in float32 as PyTorch's product of a Python
 float and a float32 tensor is, so the plain versions (which form it so)

@@ -25,8 +25,9 @@ buffer is bounded (:data:`MAX_SPANS`; what a full buffer drops counts as
 ``trace.dropped``) and shared by every thread, under one lock.
 
 :func:`count` is always on: plain integers, as ``kernels._build.launches``
-is, and like the launches, what a CUDA graph's capture counts is taken
-back and added at each of its replays (``api.backends._Graph``).
+is.  No counter is counted inside a CUDA graph's capture (a sync cannot be
+captured, and a capture records no span), so a replay adds none; it adds
+only the launches its graph holds (``api.backends._Graph``).
 :func:`counters` is one snapshot of them, of ``_build.launches``
 (``launches.<kernel>``) and of the graph caches' captures
 (``graphs.captures``), read where they live.
@@ -51,9 +52,6 @@ step       ``step`` > ``step.drive``,                  one eager step; the
            ``step.deliver``, ``step.stdp``,            drive, K3/K4 (or the
            ``step.probe`` (``step.update`` in the      delivery), STDP, the
            split loop, around its update phase)        probes
-step       ``drive.float_counts`` (counter)            fused steps whose
-                                                       drive reached K3/K4
-                                                       as drawn, uncast
 =========  ==========================================  =====================
 """
 from __future__ import annotations

@@ -12,15 +12,17 @@ package's own fused kernel cannot serve: ``pl.load`` is gone from jax
 state made with numpy from a seed; the external drive is a fixed array of
 spike counts handed to both packages.
 
-The drive as K3 and K4 take it: 50 fused steps, the drive's float counts,
-``w_ext`` and the running overflow handed to the plain K3 or K4, against
-the same steps formed as before (int32 counts cast back and weighted
-outside, the counters advanced by ops of their own), bitwise, for five
-timelines; ``Drive.counts`` against ``Drive.__call__``; the
-``drive.float_counts`` counter and a graph replay's share of it.
+The one drive every loop takes, the float32 counts as drawn: 50 fused
+steps with the counts, ``w_ext`` and the running overflow handed to the
+plain K3 or K4, and 50 steps of the split and reference loops, static and
+plastic, and of the sharded loop, each against the same steps formed with
+the int32 counts as before, bitwise, for five timelines (four sharded);
+the drive's float counts against the former int32 sums; and a general
+``fn`` stimulus with scaled counts on the split loop against the JAX
+package's eager split step and the port's fused loop.
 """
-import contextlib
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -39,7 +41,6 @@ from repro.core.neuron import NeuronParams as JaxNeuronParams
 from repro.core.neuron import NeuronState as JaxNeuronState
 from repro.core.neuron import Propagators as JaxPropagators
 from repro_torch.api import Simulator
-from repro_torch.api import backends as B
 from repro_torch.api.backends import _clone_generator, tree_map
 from repro_torch.configs.microcircuit import MicrocircuitConfig
 from repro_torch.core import kernel_policy as kpol
@@ -57,7 +58,6 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels.lif_deliver import lif_deliver
 from repro_torch.kernels.lif_update import lif_update_plain
 from repro_torch.kernels.stdp import depress_plain, traces_plain
-from repro_torch.perf import trace
 
 BUDGET = 128
 CPU = torch.device("cpu")
@@ -377,18 +377,25 @@ def drive_net():
     return port_build(scale=0.02, seed=55)
 
 
-def _drive_session(c, name, plastic):
+#: each loop a drive case runs on: its kernel mode, and whether plastic
+PATHS = {"K3": ("fused", False), "K4": ("fused", True),
+         "split": ("split", False), "split_plastic": ("split", True),
+         "reference": ("reference", False),
+         "reference_plastic": ("reference", True)}
+
+
+def _drive_session(c, name, kernels, plastic):
     timeline, budget = DRIVES[name]
     return Simulator(
         MicrocircuitConfig(scale=0.02, strategy="ell", t_presim=0.0,
                            seed=55),
-        connectome=c, device="cpu", kernels="fused", stimulus=timeline,
+        connectome=c, device="cpu", kernels=kernels, stimulus=timeline,
         spike_budget=budget, plasticity="pair_stdp" if plastic else None)
 
 
 def _todays_drive(drive, gen, t, state):
-    """``Drive.__call__`` as it was before the counts stayed float: each
-    draw cast to int32, the counts summed in int32."""
+    """``Drive.__call__`` as it was before every loop took the float
+    counts: each draw cast to int32, the counts summed in int32."""
     I_ext, ext_in = None, None
     for s, basis in zip(drive.compiled, drive.bases):
         g = gen if s.stochastic else None
@@ -470,6 +477,19 @@ def _fused_steps(b, st, ps, n_steps):
     return st, ps
 
 
+def _split_steps(b, st, ps, n_steps, drive):
+    """``n_steps`` of the backend's split loop from ``(st, ps)``, the
+    drive being ``drive``."""
+    kept, b.drive = b.drive, drive
+    try:
+        carry = b._carry(st if ps is None else (st, ps), (), None)
+        for i in range(n_steps):
+            carry, _ = b._step(carry, min(i, b.head))
+    finally:
+        b.drive = kept
+    return carry.sim, carry.ps
+
+
 def _start(sim, overflowing):
     """Two copies of the session's state, each with its own twin of the
     generator; in the overflowing case every third neuron starts above
@@ -484,19 +504,29 @@ def _start(sim, overflowing):
     return out
 
 
-@pytest.mark.parametrize("plastic", [False, True], ids=["K3", "K4"])
+@pytest.mark.parametrize("path", list(PATHS))
 @pytest.mark.parametrize("name", list(DRIVES))
-def test_float_counts_step_equals_todays_step(drive_net, name, plastic):
-    """50 fused steps with the drive's float counts, ``w_ext`` and the
-    running overflow handed to the plain K3 or K4, against the same steps
-    formed as before (int32 counts, the product and the counters' adds
-    outside): every leaf bitwise, ``t``, the overflow and the generator's
-    state included."""
-    sim = _drive_session(drive_net, name, plastic)
+def test_float_counts_step_equals_todays_step(drive_net, name, path):
+    """50 steps of a loop with the one drive, the float32 counts as drawn,
+    against the same steps formed as before: the fused steps with the
+    counts, ``w_ext`` and the running overflow handed to the plain K3 or
+    K4, against the int32 counts, the product and the counters' adds
+    outside; the split and reference steps against the int32 counts cast
+    as the split step cast them.  Every leaf bitwise, ``t``, the overflow
+    and the generator's state included."""
+    kernels, plastic = PATHS[path]
+    sim = _drive_session(drive_net, name, kernels, plastic)
     b = sim.backend
+    assert b.fused == (kernels == "fused")
     (a_st, a_ps), (w_st, w_ps) = _start(sim, name == "overflowing_budget")
-    got_st, got_ps = _fused_steps(b, a_st, a_ps, DRIVE_STEPS)
-    want_st, want_ps = _todays_steps(b, w_st, w_ps, DRIVE_STEPS)
+    if b.fused:
+        got_st, got_ps = _fused_steps(b, a_st, a_ps, DRIVE_STEPS)
+        want_st, want_ps = _todays_steps(b, w_st, w_ps, DRIVE_STEPS)
+    else:
+        got_st, got_ps = _split_steps(b, a_st, a_ps, DRIVE_STEPS, b.drive)
+        want_st, want_ps = _split_steps(
+            b, w_st, w_ps, DRIVE_STEPS,
+            functools.partial(_todays_drive, b.drive))
     for leaf in ("V", "I_ex", "I_in", "refrac"):
         assert torch.equal(getattr(got_st.neuron, leaf),
                            getattr(want_st.neuron, leaf)), leaf
@@ -512,80 +542,124 @@ def test_float_counts_step_equals_todays_step(drive_net, name, plastic):
         for leaf in ("weights", "x_pre", "x_post"):
             assert torch.equal(getattr(got_ps, leaf),
                                getattr(want_ps, leaf)), leaf
-    assert (b.drive.counts(None, got_st.t, got_st)[1] is None) \
+    assert (b.drive(None, got_st.t, got_st)[1] is None) \
         == (name == "step_current_no_spikes")
+
+
+@pytest.mark.parametrize("name", [n for n in DRIVES
+                                  if n != "fn_int32_counts"])
+def test_sharded_step_equals_todays_step(drive_net, name):
+    """50 steps of the sharded loop (a world of one, no process group)
+    with the one drive against the same steps with the int32 counts cast
+    as before: every leaf bitwise, the generator's state included.  (The
+    sharded backend takes separable drives only.)"""
+    timeline, budget = DRIVES[name]
+    sim = Simulator(MicrocircuitConfig(scale=0.02, strategy="ell",
+                                       t_presim=0.0, seed=55),
+                    connectome=drive_net, device="cpu", backend="sharded",
+                    stimulus=timeline, spike_budget=budget)
+    b = sim.backend
+    starts = []
+    for _ in range(2):
+        st = tree_map(torch.clone, sim.state)
+        st = st._replace(generator=_clone_generator(st.generator))
+        if name == "overflowing_budget":
+            st.V[:b.c.n_total:3] = float(b.prop.V_th) + 1.0
+        starts.append(st)
+    got, _ = _split_steps(b, starts[0], None, DRIVE_STEPS, b.drive)
+    want, _ = _split_steps(b, starts[1], None, DRIVE_STEPS,
+                           functools.partial(_todays_drive, b.drive))
+    for leaf in ("V", "I_ex", "I_in", "refrac", "ring", "t", "overflow"):
+        assert torch.equal(getattr(got, leaf), getattr(want, leaf)), leaf
+    assert int(got.t) == DRIVE_STEPS
+    assert (int(got.overflow) > 0) == (name == "overflowing_budget")
+    assert torch.equal(got.generator.get_state(),
+                       want.generator.get_state())
 
 
 @pytest.mark.parametrize("name", list(DRIVES))
 def test_drive_counts_cast_equal_its_call(drive_net, name):
-    """``Drive.counts`` cast to int32 is ``Drive.__call__``, and the
-    int32 counts as they were summed before, from one generator state;
-    the counts are float32 and the current the same tensor values."""
-    b = _drive_session(drive_net, name, False).backend
+    """``Drive.__call__``'s float32 counts are the int32 counts as they
+    were summed before, cast, from one generator state: whole numbers, the
+    current the same tensor values, and the generators left alike."""
+    b = _drive_session(drive_net, name, "fused", False).backend
     st = b.init(torch.Generator().manual_seed(7))
-    gens = [_clone_generator(st.generator) for _ in range(3)]
+    gens = [_clone_generator(st.generator) for _ in range(2)]
     for t in (0, 4, 5, 9, 12, 30):
         tt = torch.tensor(t, dtype=torch.int32)
-        I_f, cnt = b.drive.counts(gens[0], tt, st)
-        I_i, ext_in = b.drive(gens[1], tt, st)
-        I_o, ext_old = _todays_drive(b.drive, gens[2], tt, st)
-        for cur in (I_i, I_o):
-            assert (cur is None) == (I_f is None)
-            assert cur is None or torch.equal(cur, I_f)
+        I_f, cnt = b.drive(gens[0], tt, st)
+        I_o, ext_old = _todays_drive(b.drive, gens[1], tt, st)
+        assert (I_o is None) == (I_f is None)
+        assert I_o is None or torch.equal(I_o, I_f)
         if cnt is None:
-            assert ext_in is None and ext_old is None
+            assert ext_old is None
             continue
-        assert cnt.dtype == torch.float32 and ext_in.dtype == torch.int32
-        assert torch.equal(cnt.to(torch.int32), ext_in)
-        assert torch.equal(ext_in, ext_old)
+        assert cnt.dtype == torch.float32 and ext_old.dtype == torch.int32
         assert torch.equal(cnt, ext_old.to(torch.float32))
-    assert all(torch.equal(g.get_state(), gens[0].get_state())
-               for g in gens[1:])
+        assert torch.equal(cnt, cnt.round())
+    assert torch.equal(gens[0].get_state(), gens[1].get_state())
 
 
-@pytest.mark.parametrize("name,kernels,counted", [
-    ("background", "fused", True), ("background_thalamic", "fused", True),
-    ("step_current_no_spikes", "fused", True),
-    ("fn_int32_counts", "fused", False), ("background", "split", False)])
-def test_float_counts_counter(drive_net, name, kernels, counted):
-    """``drive.float_counts`` counts each fused step whose separable drive
-    reached the kernel as drawn; a general ``fn`` drive (which may cast)
-    and the split loop count none."""
-    timeline, budget = DRIVES[name]
-    sim = Simulator(MicrocircuitConfig(scale=0.02, strategy="ell",
-                                       t_presim=0.0, seed=55),
-                    connectome=drive_net, device="cpu", kernels=kernels,
-                    stimulus=timeline, spike_budget=budget)
-    before = trace.tally().get("drive.float_counts", 0)
-    res = sim.run(1.0)
-    after = trace.tally().get("drive.float_counts", 0)
-    assert res.n_steps == 10
-    assert after - before == (10 if counted else 0)
+@dataclasses.dataclass(frozen=True)
+class _ScaledCounts(tstim.Stimulus):
+    """A stimulus in the general ``fn`` form whose spike counts are scaled,
+    not whole: the background's draws from the session's generator times
+    0.5 (the reference's "scaled counts for custom relative weights")."""
+
+    def compile(self, c, cfg, neuron):
+        mean = torch.as_tensor(np.asarray(c.k_ext, np.float32)
+                               * np.float32(8.0 * cfg.dt * 1e-3))
+        return tstim.CompiledStimulus(
+            channel="spikes", stochastic=True,
+            fn=lambda gen, t, state: (None, 0.5 * torch.poisson(
+                mean, generator=gen)))
 
 
-class _RecordedGraph:
-    """``torch.cuda.CUDAGraph``'s stand-in: a replay runs nothing."""
-
-    def register_generator_state(self, generator):
-        pass
-
-    def replay(self):
-        pass
+SCALED_STEPS = 30
 
 
-def test_graph_replays_credit_the_captured_counts(monkeypatch):
-    """What a capture counts is taken back, and each replay adds it, as
-    the replay of the captured steps would have counted it."""
-    monkeypatch.setattr(torch.cuda, "CUDAGraph", _RecordedGraph)
-    monkeypatch.setattr(torch.cuda, "graph",
-                        lambda graph, pool=None: contextlib.nullcontext())
-    key = "test.captured_count"
-
-    def segment():
-        trace.count(key, 3)
-    before = trace.tally().get(key, 0)
-    g = B._Graph(segment, None, None)
-    assert trace.tally().get(key, 0) == before
-    assert g.counts == {key: 3}
-    g.replay(4)
-    assert trace.tally()[key] == before + 12
+def test_scaled_fn_counts_split_loop_equals_jax_and_fused(net):
+    """A general ``fn`` stimulus with scaled counts on the split loop: the
+    counts are weighted as they come, not truncated, so the run equals the
+    JAX package's eager split step given the same counts, and the port's
+    fused loop, bitwise: the rasters and the final state."""
+    c_jax, jcfg, jnet, c, _, _ = net
+    sims = {k: Simulator(MicrocircuitConfig(scale=0.02, strategy="ell",
+                                            t_presim=0.0, seed=55),
+                         connectome=c, device="cpu", kernels=k,
+                         stimulus=(_ScaledCounts(),), spike_budget=BUDGET,
+                         probes=("spikes",))
+             for k in ("split", "fused")}
+    start = sims["split"].state
+    assert not sims["split"].backend.fused and sims["fused"].backend.fused
+    fn = sims["split"].backend.drive.compiled[0].fn
+    gen = _clone_generator(start.generator)
+    counts = [fn(gen, None, None)[1].numpy() for _ in range(SCALED_STEPS)]
+    assert any((cnt != np.round(cnt)).any() for cnt in counts)
+    st = JaxSimState(
+        neuron=JaxNeuronState(*(jnp.asarray(getattr(start.neuron, k).numpy())
+                                for k in ("V", "I_ex", "I_in", "refrac"))),
+        ring=jnp.asarray(start.ring.numpy()), t=jnp.int32(0),
+        key=jax.random.PRNGKey(0), overflow=jnp.int32(0))
+    prop = JaxPropagators.make(JaxNeuronParams(), jcfg.dt)
+    spikes = []
+    for cnt in counts:
+        st, spk = jax_update_phase(st, jnet, prop, jcfg, c_jax.w_ext,
+                                   c_jax.n_total, _JaxReplay(cnt))
+        st = jax_deliver_phase(st, jnet, jcfg, spk, c_jax.n_exc)
+        spikes.append(np.asarray(spk))
+    assert np.stack(spikes).any()
+    for kernels, sim in sims.items():
+        res = sim.run(SCALED_STEPS * 0.1)
+        assert res.n_steps == SCALED_STEPS
+        np.testing.assert_array_equal(res["spikes"], np.stack(spikes),
+                                      err_msg=kernels)
+        got = sim.state
+        for leaf, want in zip(("V", "I_ex", "I_in", "refrac"), st.neuron):
+            np.testing.assert_array_equal(
+                getattr(got.neuron, leaf).numpy(), np.asarray(want),
+                err_msg=f"{kernels}: {leaf}")
+        np.testing.assert_array_equal(got.ring.numpy(), np.asarray(st.ring),
+                                      err_msg=kernels)
+        assert int(got.t) == int(st.t) == SCALED_STEPS
+        assert int(got.overflow) == int(st.overflow)

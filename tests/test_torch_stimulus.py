@@ -134,8 +134,9 @@ def test_drive_values_step_by_step(nets, name):
 
 @pytest.mark.parametrize("name", list(SPECS))
 def test_drive_call_bitwise(nets, name):
-    """``Drive`` at each step: the current bitwise; the draws zero wherever
-    the gate is off, and some nonzero where it is on."""
+    """``Drive`` at each step: the current bitwise; the draws whole numbers
+    in float32, zero wherever the gate is off, and some nonzero where it is
+    on."""
     c_jax, c = nets
     spec = SPECS[name]
     jdrive = JS.compile_drive((JS.Stimulus.from_dict(spec),), c_jax,
@@ -156,7 +157,8 @@ def test_drive_call_bitwise(nets, name):
             np.testing.assert_array_equal(p_cur.numpy(), np.asarray(j_cur),
                                           err_msg=f"t={t}")
         if p_spk is not None:
-            assert p_spk.dtype == torch.int32
+            assert p_spk.dtype == torch.float32
+            assert torch.equal(p_spk, p_spk.round()), f"t={t}"
             if not float(pcomp.gate(torch.tensor(t, dtype=torch.int32))):
                 assert not p_spk.any(), f"t={t}"
             drew += int(p_spk.sum())
